@@ -1,0 +1,19 @@
+"""repro_torch: the CMAX-CAMEL estimator in PyTorch, with the engine pass
+as a CUDA C++ kernel for Hopper (sm_90a).
+
+A second package beside the JAX reference `repro`, with the same
+subpackage and module names so each piece has an obvious counterpart:
+
+  core     — types, warp, IWE, contrast, sorting, CG-PR, adaptive control
+             and the estimation pipeline (batched masked lockstep)
+  kernels  — the hand-written engine-pass kernel, its plain PyTorch
+             version and the binning prologue
+  data     — the seeded synthetic event generator (bit-identical windows)
+  configs  — the paper's pipeline configuration
+  convert  — carries configurations, windows and results across
+
+Tensor-creating helpers default to the CUDA device and raise when no card
+is present; estimation entry points run on the device of their inputs.
+The package never imports JAX or `repro`.
+"""
+__version__ = "0.1.0"

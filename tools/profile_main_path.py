@@ -1,0 +1,87 @@
+"""Where the time of the port's main path goes on one CUDA card.
+
+    python3 tools/profile_main_path.py [--streams 8] [--events 40000]
+
+Runs `estimate_batch` (engine "cuda_batched", the paper's CONFIG) on one
+batch of POSTER windows once to warm up, then once under `torch.profiler`,
+and prints: the wall time, the device busy time summed over kernels and the
+device's idle share, the lockstep passes, and the kernels and operators
+that took the most device time. Needs a CUDA card; imports no JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "..", "src"))
+
+
+def _self_device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--streams", type=int, default=8)
+    ap.add_argument("--events", type=int, default=40000)
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_main_path: no CUDA device", file=sys.stderr)
+        return 1
+
+    import repro_torch.core as T
+    from repro_torch.configs import cmax_camel
+    from repro_torch.core.pipeline import lockstep_passes
+    from repro_torch.data import events
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    seqs = [events.make_sequence(dataclasses.replace(
+        events.POSTER, n_windows=1, events_per_window=args.events,
+        n_features=2500, jerk_prob=0.0, seed=events.POSTER.seed + s),
+        device=dev) for s in range(args.streams)]
+    wins = T.EventWindow(*[torch.cat([getattr(q[0], f) for q in seqs])
+                           for f in ("x", "y", "t", "p", "valid")])
+    om0 = torch.cat([q[2] for q in seqs])
+    cfg = cmax_camel.CONFIG
+
+    T.estimate_batch(wins, om0, cfg)                  # warm-up (and build)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        res = T.estimate_batch(wins, om0, cfg)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    evts = [e for e in prof.key_averages() if _self_device_us(e) > 0]
+    busy_us = sum(_self_device_us(e) for e in evts)
+    passes = lockstep_passes(res)
+    print(f"[profile] estimate_batch B={args.streams} N={args.events} "
+          f"240x180 cuda_batched on {card}: wall {wall_us:.0f} us, "
+          f"{passes} lockstep passes ({wall_us / passes:.0f} us/pass), "
+          f"device busy {busy_us:.0f} us, idle share "
+          f"{1 - busy_us / wall_us:.3f}")
+    for e in sorted(evts, key=_self_device_us, reverse=True)[:args.top]:
+        print(f"[profile] {_self_device_us(e):10.0f} us  {e.count:6d} calls"
+              f"  {e.key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
