@@ -2,25 +2,40 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, holds each
-kernel against its plain PyTorch version at the main path's full shapes,
-drives the main path (batched, warm-started CMAX estimation through
-`estimate_streams`) at the paper's size, and times the kernels. Phases:
+Builds the port's CUDA kernels from the sources in this checkout (one nvcc
+per source, all at once), holds each kernel against its plain PyTorch
+version at its path's full shapes, drives both estimation paths at the
+paper's size, and times the kernels. Phases:
 
   1. device     the card's name, capability (must be 9.0), power limit;
   2. kernels    each kernel against its plain version at every stage's
                 shapes (B=8 POSTER windows of 40,000 events, 2,500
-                features): variance rtol=1e-4, max-normalized gradient
-                atol=1e-4, bitwise equal on a rerun, and each window's
-                B=1 result bitwise equal to its slot of the B=8 batch;
+                features), bitwise equal on a rerun, and each window's B=1
+                result bitwise equal to its slot of the B=8 batch:
+                  megakernel_stats: variance rtol=1e-4, max-normalized
+                    gradient atol=1e-4;
+                  tile_accumulate: at capacity 4096 and at the zero-spill
+                    capacity, f32 and bf16 deltas: tiles rtol=atol=1e-4;
+                    iwe_accum's `spilled` equal to the count from the
+                    per-tile tap counts, its channels (kernel + fold-back)
+                    rtol=atol=1e-4 of the reference scatter;
+                  blur_stats_streaming: on those channel stacks, the sums
+                    within 1e-3 of each window's largest, variance
+                    rtol=1e-4, max-normalized gradient atol=1e-4;
   3. main path  estimate_streams on 8 streams x 4 windows at 240x180 with
                 engine="cuda_batched": launch counts equal the lockstep
                 engine passes, and the first window of each stream agrees
                 with the port's `reference` engine on the card (omega
                 atol=5e-4, v_final rtol=1e-3);
-  4. timing     each kernel's time per launch (CUDA events), the binning
-                prologue's and the plain version's, against the bound set by
-                the bytes and operations the kernel needs.
+  4. per-window estimate_sequence of one stream of 4 windows and
+     path       estimate_batch of 8 windows with engine="cuda" at
+                engine_capacity=4096: each new kernel's launches equal the
+                engine passes taken, RMSE vs omega_true < 0.5 rad/s, the
+                first windows agree with the reference engine as in 3;
+  5. timing     each kernel's time per launch (CUDA events), its prologue's,
+                its plain version's and, where one PyTorch call computes the
+                same function, that call's, against the bound set by the
+                bytes and operations the function needs.
 
 The second-to-last line is the `kernels` JSON object and the last line is
 {"ok": true, "device": {...}}. Any failed phase raises and the script exits
@@ -53,6 +68,10 @@ B_WINDOWS = 8
 N_EVENTS = 40000
 N_FEATURES = 2500
 STREAMS, WINDOWS_PER_STREAM = 8, 4
+CAPACITY = 4096               # the "cuda" engine's default per-tile budget
+TILE = (8, 128)
+P_TILE = TILE[0] * TILE[1]
+BLUR_RB = 16
 
 
 def check(cond, msg):
@@ -68,12 +87,26 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Mean ms per call of `fn` from CUDA events over `reps` calls."""
+def cuda_ms(fn, reps: int, warmup: int = 3, hold: bool = True) -> float:
+    """Mean ms per call of `fn` from CUDA events over `reps` calls.
+
+    With `hold`, the device first spins for longer than the host needs to
+    enqueue the calls, so the events time the device's work even where the
+    host enqueues slower than the device runs (small launches); a call that
+    syncs with the host is still timed at the host's pace. Without it, the
+    time is the pace at which a caller issuing the calls sees them finish.
+    """
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        # ~2e9 spin cycles per second at the card's clock, at most 1 s
+        torch.cuda._sleep(int(min(2 * host_s * reps, 1.0) * 2e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -87,6 +120,223 @@ def rmse(est: np.ndarray, ref: np.ndarray) -> float:
     return float(np.sqrt((e ** 2).mean()))
 
 
+def tile_counts(T, ev, omega, cam, scale):
+    """(B, n_tiles) in-range taps per 8x128 tile, counted with bincount
+    straight from the warp (independent of the prologue's sort)."""
+    Hs, Ws = cam.grid(scale)
+    ntx = -(-Ws // TILE[1])
+    n_tiles = -(-Hs // TILE[0]) * ntx
+    w = T.warp_events(ev, omega, cam, scale)
+    cols = []
+    for b in range(ev.x.shape[0]):
+        ids = [((w.y0[b] + dy) // TILE[0]) * ntx + (w.x0[b] + dx) // TILE[1]
+               for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1))]
+        ids = torch.cat(ids)[w.in_range[b].repeat(4)]
+        cols.append(torch.bincount(ids.long(), minlength=n_tiles))
+    return torch.stack(cols)
+
+
+def zero_spill_capacity(cnt) -> int:
+    """The smallest power of two at or above the largest tile count."""
+    return 1 << max(int(cnt.max()) - 1, 0).bit_length()
+
+
+def check_window_kernels(T, ops, ref, tile_accumulate, tile_accumulate_plain,
+                         blur_stats_streaming, blur_stats_streaming_plain,
+                         cfg, first, om_b):
+    """Phase 2 for the per-window engine's two kernels; returns what the
+    timing phase needs per stage and the largest errors."""
+    cam = cfg.camera
+    rows, err_tile, err_blur = [], 0.0, 0.0
+    for st in cfg.stages:
+        Hs, Ws = st.grid(cam)
+        weights = T.sort_events(first, om_b, cam, st).weights
+        cnt = tile_counts(T, first, om_b, cam, st.scale)
+        zero_cap = zero_spill_capacity(cnt)
+        packs = {}
+        for cap in sorted({CAPACITY, zero_cap}):
+            for dtype in (torch.float32, torch.bfloat16):
+                pack = ops.pack_tiles(first, om_b, cam, st.scale, weights,
+                                      tile=TILE, capacity=cap, dtype=dtype)
+                check(torch.equal(pack.cnt, cnt),
+                      "the prologue's tile counts differ from bincount's")
+                out = tile_accumulate(pack.pix, pack.deltas, p_tile=P_TILE)
+                again = tile_accumulate(pack.pix, pack.deltas,
+                                        p_tile=P_TILE)
+                plain = tile_accumulate_plain(pack.pix, pack.deltas,
+                                              p_tile=P_TILE)
+                torch.cuda.synchronize()
+                err = float((out - plain).abs().max())
+                err_tile = max(err_tile, err)
+                slot_ok = all(torch.equal(tile_accumulate(
+                    pack.pix[i:i + 1].contiguous(),
+                    pack.deltas[i:i + 1].contiguous(), p_tile=P_TILE)[0],
+                    out[i]) for i in range(B_WINDOWS))
+                occupied = int(torch.minimum(
+                    cnt, torch.tensor(cap, device=cnt.device)).sum())
+                print(f"[kernels] tile_accumulate s={st.scale} capacity "
+                      f"{cap} {str(dtype)[6:]} B={B_WINDOWS} tiles "
+                      f"{pack.pix.shape[1]} occupied slots {occupied}: max "
+                      f"abs err {err:.3e}, rerun bitwise "
+                      f"{bool(torch.equal(out, again))}, B=1 == slot "
+                      f"bitwise {slot_ok}")
+                check(bool(torch.isfinite(out).all()), "non-finite tiles")
+                torch.testing.assert_close(out, plain, rtol=1e-4, atol=1e-4)
+                check(bool(torch.equal(out, again)),
+                      "tile_accumulate rerun is not bitwise equal")
+                check(slot_ok, "tile_accumulate B=1 differs from its slot")
+                packs[(cap, dtype)] = (pack, occupied)
+
+        acc = ops.iwe_accum(first, om_b, cam, st.scale, weights=weights,
+                            tile=TILE, capacity=CAPACITY)
+        spilled = (cnt - CAPACITY).clamp(min=0).sum(-1)
+        n_taps = int(cnt.sum())
+        print(f"[kernels] iwe_accum s={st.scale} capacity {CAPACITY}: "
+              f"spilled {int(acc.spilled.sum())} of {n_taps} in-range taps "
+              f"({acc.spilled.sum().item() / max(n_taps, 1):.3f}); "
+              f"zero-spill capacity {zero_cap} (largest tile "
+              f"{int(cnt.max())})")
+        check(torch.equal(acc.spilled.long(), spilled),
+              "spilled differs from the per-tile counts")
+        scatter = ref.iwe_accum_ref(first, om_b, cam, st.scale, weights)
+        torch.testing.assert_close(acc.channels, scatter, rtol=1e-4,
+                                   atol=1e-4)
+
+        ch = acc.channels
+        taps = T.gaussian_taps(st.blur_taps, st.blur_sigma,
+                               device=ch.device)
+        out = blur_stats_streaming(ch, taps, rb=BLUR_RB)
+        again = blur_stats_streaming(ch, taps, rb=BLUR_RB)
+        plain = blur_stats_streaming_plain(ch, taps)
+        torch.cuda.synchronize()
+        # T_x, T_y, T_z vanish (each derivative image sums to ~0), so the
+        # sums are held to each window's largest sum
+        rel = float(((out - plain).abs()
+                     / plain.abs().amax(-1, keepdim=True)).max())
+        err_blur = max(err_blur, float((out - plain).abs().max()))
+        v, g = T.stats_to_objective(out, Hs * Ws)
+        vp, gp = T.stats_to_objective(plain, Hs * Ws)
+        rel_v = float(((v - vp).abs() / vp.abs()).max())
+        err_g = float(((g - gp).abs() / gp.abs().max()).max())
+        slot_ok = all(torch.equal(blur_stats_streaming(
+            ch[i:i + 1], taps, rb=BLUR_RB)[0], out[i])
+            for i in range(B_WINDOWS))
+        print(f"[kernels] blur_stats_streaming s={st.scale} k={st.blur_taps} "
+              f"grid {Hs}x{Ws} B={B_WINDOWS}: sums err {rel:.3e} of the "
+              f"largest, var rel err {rel_v:.3e}, grad err {err_g:.3e}, "
+              f"rerun bitwise {bool(torch.equal(out, again))}, B=1 == slot "
+              f"bitwise {slot_ok}")
+        check(bool(torch.isfinite(out).all()), "non-finite blur stats")
+        check(rel <= 1e-3, f"blur sums err {rel} > 1e-3 of the largest")
+        check(rel_v <= 1e-4, f"blur variance rel err {rel_v} > 1e-4")
+        check(err_g <= 1e-4, f"blur normalized gradient err {err_g} > 1e-4")
+        check(bool(torch.equal(out, again)),
+              "blur_stats_streaming rerun is not bitwise equal")
+        check(slot_ok, "blur_stats_streaming B=1 differs from its slot")
+        rows.append(dict(stage=st, weights=weights, zero_cap=zero_cap,
+                         packs=packs, channels=ch, taps=taps,
+                         spilled_share=acc.spilled.sum().item()
+                         / max(n_taps, 1)))
+    return rows, err_tile, err_blur
+
+
+def time_window_kernels(T, ops, tile_accumulate, tile_accumulate_plain,
+                        blur_stats_streaming, blur_stats_streaming_plain,
+                        cfg, first, om_b, rows, card):
+    """Phase 5 for the per-window engine's two kernels: per-stage rows."""
+    cam = cfg.camera
+    tile_rows, blur_rows = [], []
+    for r in rows:
+        st = r["stage"]
+        Hs, Ws = st.grid(cam)
+        timed = {}
+        for (cap, dtype), (pack, occupied) in r["packs"].items():
+            kern = cuda_ms(lambda: tile_accumulate(
+                pack.pix, pack.deltas, p_tile=P_TILE), reps=20)
+            slots = pack.pix.numel()
+            n_out = pack.pix.shape[0] * pack.pix.shape[1] * P_TILE
+            delta_bytes = 16 if dtype == torch.float32 else 8
+            # every slot's pixel id, the deltas of the occupied slots, the
+            # tile partials; 4 adds per occupied slot
+            nbytes = slots * 4 + occupied * delta_bytes + n_out * 16
+            flops = occupied * 4
+            timed[(cap, dtype)] = (kern, nbytes, flops, slots, n_out)
+        pack, occupied = r["packs"][(CAPACITY, torch.float32)]
+        kern, nbytes, flops, slots, n_out = timed[(CAPACITY, torch.float32)]
+        plain = cuda_ms(lambda: tile_accumulate_plain(
+            pack.pix, pack.deltas, p_tile=P_TILE), reps=5, warmup=1)
+        plain_out = tile_accumulate_plain(pack.pix, pack.deltas,
+                                          p_tile=P_TILE)
+        # one PyTorch call for the same function: index_add_ of the packed
+        # deltas (float atomics: not deterministic). An empty slot's deltas
+        # are zero, so it adds its zeros to pixel (slot mod P_TILE) of its
+        # own tile, spread out rather than piled onto one address.
+        dev = pack.pix.device
+        slot = torch.arange(pack.pix.shape[2], device=dev) % P_TILE
+        idx = torch.where(pack.pix >= 0, pack.pix.long(), slot) \
+            + torch.arange(pack.pix.shape[0] * pack.pix.shape[1],
+                           device=dev).view(pack.pix.shape[:2] + (1,)) \
+            * P_TILE
+        idx = idx.reshape(-1)
+        flat = pack.deltas.reshape(-1, 4)
+        lib_out = torch.zeros((n_out, 4), device=dev).index_add_(0, idx, flat)
+        torch.testing.assert_close(lib_out.view_as(plain_out), plain_out,
+                                   rtol=1e-4, atol=1e-4)
+        lib = cuda_ms(lambda: torch.zeros(
+            (n_out, 4), device=dev).index_add_(0, idx, flat), reps=20)
+        pro = cuda_ms(lambda: ops.pack_tiles(
+            first, om_b, cam, st.scale, r["weights"], tile=TILE,
+            capacity=CAPACITY), reps=10, hold=False)
+        whole = cuda_ms(lambda: ops.iwe_accum(
+            first, om_b, cam, st.scale, weights=r["weights"], tile=TILE,
+            capacity=CAPACITY), reps=10, hold=False)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        other = {f"ms_cap{cap}_{str(dt)[6:]}": v[0]
+                 for (cap, dt), v in timed.items()}
+        row = dict(scale=st.scale, capacity=CAPACITY, ms=kern,
+                   plain_ms=plain, library_ms=lib, prologue_ms=pro,
+                   iwe_accum_ms=whole, bound_ms=bound,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes=nbytes, flops=flops, zero_spill_capacity=r[
+                       "zero_cap"], spilled_share=r["spilled_share"],
+                   **other)
+        tile_rows.append(row)
+        variants = ", ".join(f"{k[3:]} {v * 1e3:.1f} us"
+                             for k, v in other.items())
+        print(f"[timing] tile_accumulate s={st.scale} B={B_WINDOWS} "
+              f"capacity {CAPACITY}: kernel {kern * 1e3:.1f} us/launch "
+              f"({variants}), prologue {pro * 1e3:.1f} us, whole iwe_accum "
+              f"{whole * 1e3:.1f} us, plain {plain * 1e3:.1f} us, "
+              f"index_add_ {lib * 1e3:.1f} us, bound {bound * 1e3:.2f} us "
+              f"({row['bound_by']}: {nbytes} B, {flops} flop) = "
+              f"{100 * bound / kern:.2f}% of bound reached, on {card}")
+
+        ch, taps, k = r["channels"], r["taps"], st.blur_taps
+        kern = cuda_ms(lambda: blur_stats_streaming(ch, taps, rb=BLUR_RB),
+                       reps=50)
+        plain = cuda_ms(lambda: blur_stats_streaming_plain(ch, taps),
+                        reps=10, warmup=2)
+        P = Hs * Ws
+        nbytes = B_WINDOWS * (4 * P * 4 + 32) + k * 4
+        flops = B_WINDOWS * P * (16 * k + 12)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        row = dict(scale=st.scale, k=k, rb=BLUR_RB, ms=kern, plain_ms=plain,
+                   library_ms=None, bound_ms=bound,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes=nbytes, flops=flops)
+        blur_rows.append(row)
+        print(f"[timing] blur_stats_streaming s={st.scale} k={k} "
+              f"B={B_WINDOWS}: kernel {kern * 1e3:.1f} us/launch, plain "
+              f"{plain * 1e3:.1f} us, bound {bound * 1e3:.2f} us "
+              f"({row['bound_by']}: {nbytes} B, {flops} flop) = "
+              f"{100 * bound / kern:.2f}% of bound reached, on {card}")
+    return tile_rows, blur_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -96,7 +346,13 @@ def main() -> int:
     from repro_torch.configs import cmax_camel
     from repro_torch.core.pipeline import lockstep_passes
     from repro_torch.data import events
-    from repro_torch.kernels import _build, megakernel, ops
+    from repro_torch.kernels import (_build, blur_stats_streaming,
+                                     blur_stats_streaming_plain, megakernel,
+                                     ops, tile_accumulate,
+                                     tile_accumulate_plain)
+    from repro_torch.kernels import ref as kernel_ref
+    counted = (megakernel.megakernel_stats, tile_accumulate,
+               blur_stats_streaming)
 
     # ---- 1. device ----
     dev = torch.device("cuda")
@@ -175,15 +431,21 @@ def main() -> int:
         check(bool(torch.equal(out, again)), "rerun is not bitwise equal")
         check(slot_ok, "B=1 result differs from its slot in B=8")
         stage_inputs.append((st, bins, fir, kw, live))
+    window_rows, err_tile, err_blur = check_window_kernels(
+        T, ops, kernel_ref, tile_accumulate, tile_accumulate_plain,
+        blur_stats_streaming, blur_stats_streaming_plain, cfg, first, om_b)
 
     # ---- 3. the main path ----
-    megakernel.megakernel_stats.launches = 0
+    for fn in counted:
+        fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     oms, res = T.estimate_streams(streams, om_init, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = megakernel.megakernel_stats.launches
+    check(tile_accumulate.launches == blur_stats_streaming.launches == 0,
+          "the cuda_batched path launched a per-window kernel")
     passes = lockstep_passes(res)
     n_win = STREAMS * WINDOWS_PER_STREAM
     check(tuple(oms.shape) == (STREAMS, WINDOWS_PER_STREAM, 3),
@@ -228,7 +490,77 @@ def main() -> int:
     check(d_om <= 5e-4, f"omega differs from reference by {d_om}")
     check(worst_v <= 1e-3, f"v_final differs from reference by {worst_v}")
 
-    # ---- 4. timing ----
+    # ---- 4. the per-window path ----
+    wcfg = dataclasses.replace(cfg, engine="cuda", engine_capacity=CAPACITY)
+    one_stream = streams.map(lambda a: a[0])
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    oms_seq, res_seq = T.estimate_sequence(one_stream, om_init[0], wcfg)
+    torch.cuda.synchronize()
+    wall_seq = time.perf_counter() - t0
+    seq_launches = (tile_accumulate.launches, blur_stats_streaming.launches)
+    seq_passes = sum(int(st.passes.sum()) for st in res_seq.stages)
+    check(megakernel.megakernel_stats.launches == 0,
+          "the cuda path launched the batched kernel")
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_w = T.estimate_batch(first, om_b, wcfg)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    b_launches = (tile_accumulate.launches, blur_stats_streaming.launches)
+    b_passes = lockstep_passes(res_w)
+    window_launches = [a + b for a, b in zip(seq_launches, b_launches)]
+    err_seq = rmse(oms_seq.cpu().numpy(), om_true[0].cpu().numpy())
+    err_b = rmse(res_w.omega.cpu().numpy(), om_true[:B_WINDOWS, 0].cpu()
+                 .numpy())
+    print(f"[window] estimate_sequence 1 stream x {WINDOWS_PER_STREAM} "
+          f"windows, {N_EVENTS} events, 240x180, engine cuda, capacity "
+          f"{CAPACITY}: {wall_seq:.3f} s, "
+          f"{WINDOWS_PER_STREAM / wall_seq:.2f} windows/s on {card}; "
+          f"passes {seq_passes}, launches (tile_accumulate, "
+          f"blur_stats_streaming) {seq_launches}; RMSE vs omega_true "
+          f"{err_seq:.4f} rad/s")
+    print(f"[window] estimate_batch {B_WINDOWS} windows, engine cuda: "
+          f"{wall_b:.3f} s, {B_WINDOWS / wall_b:.2f} windows/s on {card}; "
+          f"lockstep passes {b_passes}, launches {b_launches}; RMSE vs "
+          f"omega_true {err_b:.4f} rad/s; mean iterations per stage "
+          f"{[round(t.iters.float().mean().item(), 2) for t in res_w.stages]}")
+    check(seq_launches == (seq_passes, seq_passes),
+          f"estimate_sequence launches {seq_launches} != passes {seq_passes}")
+    check(b_launches == (b_passes, b_passes),
+          f"estimate_batch launches {b_launches} != passes {b_passes}")
+    check(megakernel.megakernel_stats.launches == 0,
+          "the cuda path launched the batched kernel")
+    check(bool(torch.isfinite(oms_seq).all())
+          and bool(torch.isfinite(res_w.omega).all()), "non-finite omega")
+    check(err_seq < 0.5 and err_b < 0.5,
+          f"RMSE vs omega_true {err_seq}, {err_b} >= 0.5 rad/s")
+    # first windows against the reference engine (stream s, window 0)
+    ref_om = ref.omega[:B_WINDOWS]
+    d_om_w = max(float((res_w.omega - ref_om).abs().max()),
+                 float((oms_seq[0] - ref_om[0]).abs().max()))
+    worst_v_w = 0.0
+    for st_r, st_b, st_s in zip(ref.stages, res_w.stages, res_seq.stages):
+        vr_b = st_r.v_final[:B_WINDOWS]
+        for vk, vr in ((st_b.v_final, vr_b), (st_s.v_final[0], vr_b[0])):
+            worst_v_w = max(worst_v_w,
+                            float(((vk - vr).abs() / vr.abs()).max()))
+        diff = st_r.iters[:B_WINDOWS] != st_b.iters
+        for s_ in torch.nonzero(diff).flatten().tolist():
+            print(f"[window] stream {s_}: iterations differ from the "
+                  f"reference engine ({int(st_b.iters[s_])} vs "
+                  f"{int(st_r.iters[s_])})")
+    print(f"[window] first windows vs reference engine: omega max abs diff "
+          f"{d_om_w:.3e}, v_final max rel diff {worst_v_w:.3e}")
+    check(d_om_w <= 5e-4, f"cuda omega differs from reference by {d_om_w}")
+    check(worst_v_w <= 1e-3,
+          f"cuda v_final differs from reference by {worst_v_w}")
+
+    # ---- 5. timing ----
     per_stage = []
     for st, bins, fir, kw, live in stage_inputs:
         P = kw["H"] * kw["W"]
@@ -239,7 +571,7 @@ def main() -> int:
             *bins, om_b, fir, **kw), reps=5, warmup=1)
         weights = T.sort_events(first, om_b, cam, st).weights
         pro = cuda_ms(lambda: ops.bin_taps(first, om_b, weights, cam,
-                                           st.scale), reps=20)
+                                           st.scale), reps=20, hold=False)
         # bytes the function needs: x, y, dt, pw of the events with live
         # taps, each live record, the CSR offsets, omega, taps, the output
         nbytes = (live // 4) * 16 + live * 4 + B_WINDOWS * (P + 1) * 4 \
@@ -259,15 +591,38 @@ def main() -> int:
               f"({row['bound_by']}: {nbytes} B, {flops} flop) = "
               f"{100 * bound / kern:.2f}% of bound reached, on {card}")
 
-    full = per_stage[-1]
+    tile_rows, blur_rows = time_window_kernels(
+        T, ops, tile_accumulate, tile_accumulate_plain, blur_stats_streaming,
+        blur_stats_streaming_plain, cfg, first, om_b, window_rows, card)
+
+    at = f"s=1 stage, B={B_WINDOWS}, N={N_EVENTS}"
+    full, tile_full, blur_full = per_stage[-1], tile_rows[-1], blur_rows[-1]
     kernels = [dict(
         name="megakernel_stats", route="cuda",
         source="src/repro_torch/kernels/csrc/megakernel.cu",
         replaces="src/repro/kernels/megakernel.py:184",
         launches=launches, max_abs_err=max_abs_err, ms=full["ms"],
         plain_ms=full["plain_ms"], bound_ms=full["bound_ms"],
-        bound_by=full["bound_by"], library_ms=None,
-        at=f"s=1 stage, B={B_WINDOWS}, N={N_EVENTS}", per_stage=per_stage)]
+        bound_by=full["bound_by"], library_ms=None, at=at,
+        per_stage=per_stage), dict(
+        name="tile_accumulate", route="cuda",
+        source="src/repro_torch/kernels/csrc/iwe_accum.cu",
+        replaces="src/repro/kernels/iwe_accum.py:54",
+        launches=window_launches[0], max_abs_err=err_tile,
+        ms=tile_full["ms"], plain_ms=tile_full["plain_ms"],
+        bound_ms=tile_full["bound_ms"], bound_by=tile_full["bound_by"],
+        library_ms=tile_full["library_ms"],
+        at=f"{at}, capacity {CAPACITY}, f32", per_stage=tile_rows), dict(
+        name="blur_stats_streaming", route="cuda",
+        source="src/repro_torch/kernels/csrc/blur_stats.cu",
+        replaces="src/repro/kernels/blur_stats.py:93",
+        launches=window_launches[1], max_abs_err=err_blur,
+        ms=blur_full["ms"], plain_ms=blur_full["plain_ms"],
+        bound_ms=blur_full["bound_ms"], bound_by=blur_full["bound_by"],
+        library_ms=None, at=f"{at}, rb={BLUR_RB}", per_stage=blur_rows)]
+    for kern in kernels:
+        check(kern["launches"] > 0,
+              f"{kern['name']} was launched no time on its path")
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,15 @@
 """repro_torch: the CMAX-CAMEL estimator in PyTorch, with the engine pass
-as a CUDA C++ kernel for Hopper (sm_90a).
+on CUDA C++ kernels for Hopper (sm_90a).
 
 A second package beside the JAX reference `repro`, with the same
 subpackage and module names so each piece has an obvious counterpart:
 
   core     — types, warp, IWE, contrast, sorting, CG-PR, adaptive control
              and the estimation pipeline (batched masked lockstep)
-  kernels  — the hand-written engine-pass kernel, its plain PyTorch
-             version and the binning prologue
+  kernels  — the hand-written kernels (the batched engine-pass kernel;
+             the per-window tile accumulation and streaming blur
+             statistics), their plain PyTorch versions and the prologues
+             that feed them
   data     — the seeded synthetic event generator (bit-identical windows)
   configs  — the paper's pipeline configuration
   convert  — carries configurations, windows and results across

@@ -15,7 +15,8 @@ from .core.types import Camera, CmaxConfig, EventWindow, StageConfig
 from .device import DeviceLike, resolve
 
 #: reference engine name -> the port's counterpart
-ENGINE_MAP = {"reference": "reference", "pallas_batched": "cuda_batched"}
+ENGINE_MAP = {"reference": "reference", "pallas": "cuda",
+              "pallas_batched": "cuda_batched"}
 
 _CAMERA_FIELDS = ("width", "height", "fx", "fy", "cx", "cy")
 _STAGE_FIELDS = ("scale", "tau", "max_iters", "blur_taps", "blur_sigma",
@@ -24,10 +25,9 @@ _STAGE_FIELDS = ("scale", "tau", "max_iters", "blur_taps", "blur_sigma",
 
 def config_from_reference(cfg) -> CmaxConfig:
     """The port's `CmaxConfig` for a reference `CmaxConfig`, read by
-    attribute. `pallas_batched` maps to `cuda_batched`; the reference's
-    capacity and interpret knobs have no counterpart (the port's kernel
-    has no capacity). The per-window `pallas` engine has no counterpart
-    yet and raises."""
+    attribute. `pallas` maps to `cuda` and `pallas_batched` to
+    `cuda_batched`; `engine_capacity` carries across (the `cuda` engine
+    reads it), and the interpret knob has no counterpart."""
     engine = ENGINE_MAP.get(cfg.engine)
     if engine is None:
         raise ValueError(f"reference engine {cfg.engine!r} has no "
@@ -44,6 +44,7 @@ def config_from_reference(cfg) -> CmaxConfig:
         use_cgpr=bool(cfg.use_cgpr),
         dtype=dtype,
         engine=engine,
+        engine_capacity=int(cfg.engine_capacity),
         engine_rb=int(cfg.engine_rb),
     )
 

@@ -18,7 +18,9 @@ iteration covers the whole batch, finished windows keep their carry
 verbatim, and the loop stops when no window is active — the carry-select
 semantics of the reference, so a window's result does not depend on the
 batch it rides in. Under engine="cuda_batched" each such pass is one call
-of the engine-pass kernel for the whole batch.
+of the engine-pass kernel for the whole batch; under engine="cuda" it is one
+launch each of the tile-accumulation and blur-statistics kernels, for one
+window (`estimate_window`, `estimate_sequence`) or the whole batch.
 """
 from __future__ import annotations
 
@@ -88,17 +90,31 @@ def _fir_cache(stage: StageConfig, dtype):
 
 
 def make_engine_pass(cam: Camera, stage: StageConfig,
-                     dtype=torch.float32, engine: str = "reference"
-                     ) -> EnginePass:
+                     dtype=torch.float32, engine: str = "reference", *,
+                     capacity: int = 4096) -> EnginePass:
     """One full engine pass at stage s: warp+vote+accumulate (IWE & dIWE),
     blur statistics, Eq. 12 objective + gradient. Returns
     fn(ev, weights, omega) -> (variance, grad(..., 3)).
 
     "reference" is the plain datapath and takes any leading batch axes;
-    "cuda_batched" runs one window as a batch of one through the kernel."""
+    "cuda" takes one (N,) window or a (B, N) batch, with `capacity` taps per
+    tile in its accumulation kernel; "cuda_batched" runs one window as a
+    batch of one through the kernel."""
     Hs, Ws = stage.grid(cam)
     fir = _fir_cache(stage, dtype)
 
+    if engine == "cuda":
+        from ..kernels.ops import fused_engine_pass
+
+        def tile_engine(ev: EventWindow, weights: torch.Tensor,
+                        omega: torch.Tensor):
+            v, g, _spilled = fused_engine_pass(
+                ev, omega, cam, stage.scale, stage.blur_taps,
+                stage.blur_sigma, weights=weights, capacity=capacity,
+                fir=fir(ev.device))
+            return v, g
+
+        return tile_engine
     if engine == "cuda_batched":
         from ..kernels.ops import batched_engine_pass
 
@@ -129,7 +145,8 @@ def make_batched_engine_pass(cam: Camera, stage: StageConfig,
     -> (variance (B,), grad (B,3)).
 
     Under engine="cuda_batched" this is the prologue plus ONE kernel call
-    for the whole batch; "reference" runs the plain datapath on the batch."""
+    for the whole batch; "cuda" launches each of its two kernels once for
+    the whole batch; "reference" runs the plain datapath on the batch."""
     if cfg.engine == "cuda_batched":
         from ..kernels.ops import batched_engine_pass
         fir = _fir_cache(stage, torch.float32)
@@ -142,7 +159,8 @@ def make_batched_engine_pass(cam: Camera, stage: StageConfig,
                 fir=fir(ev.device))
 
         return kernel_engine
-    return make_engine_pass(cam, stage, cfg.dtype, engine=cfg.engine)
+    return make_engine_pass(cam, stage, cfg.dtype, engine=cfg.engine,
+                            capacity=cfg.engine_capacity)
 
 
 def _max_iters(cfg: CmaxConfig, stage: StageConfig, stage_idx: int) -> int:
@@ -328,7 +346,8 @@ def _estimate_window(ev: EventWindow, omega0: torch.Tensor, cfg: CmaxConfig,
     omega = omega0.to(cfg.dtype)
     traces = []
     for si, stage in enumerate(cfg.stages):
-        engine = make_engine_pass(cam, stage, cfg.dtype, engine=cfg.engine)
+        engine = make_engine_pass(cam, stage, cfg.dtype, engine=cfg.engine,
+                                  capacity=cfg.engine_capacity)
         # CG history does not transfer across resolutions (the objective
         # surface changes scale) — restart CG at each stage, as HW does.
         opt_state = cgpr.init_state(3, cfg.dtype, device=omega.device)

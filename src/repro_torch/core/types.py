@@ -92,12 +92,18 @@ class StageConfig:
 #: Selectable engine-pass backends (CmaxConfig.engine):
 #:   "reference"    — the plain PyTorch scatter + blur_separable datapath
 #:                    (the correctness oracle)
+#:   "cuda"         — the per-window engine (counterpart of "pallas"): per
+#:                    engine pass, the tile-packing prologue, ONE launch of
+#:                    the tile-accumulation kernel (kernels/iwe_accum.py),
+#:                    the fold-back of the taps beyond `engine_capacity`,
+#:                    and ONE launch of the streaming blur-statistics kernel
+#:                    (kernels/blur_stats.py), for a window or a batch
 #:   "cuda_batched" — the batched engine: per engine pass, the binning
 #:                    prologue plus ONE launch of the hand-written CUDA
 #:                    kernel for the whole batch (kernels/megakernel.py);
 #:                    the residence loop runs windows in masked lockstep.
-#:                    On CPU tensors it runs the kernel's plain version.
-ENGINES = ("reference", "cuda_batched")
+#: On CPU tensors the kernel engines run their kernels' plain versions.
+ENGINES = ("reference", "cuda", "cuda_batched")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,9 +111,12 @@ class CmaxConfig:
     """Full pipeline configuration (paper-faithful defaults).
 
     Unlike the JAX reference, the default engine is "cuda_batched": the
-    main path on the card is the kernel. There is no capacity knob: the
-    kernel reads variable-length per-pixel segments and never drops a tap.
-    `engine_rb` is the kernel's row-slab height (rows of output per block).
+    main path on the card is the kernel. `engine_capacity` is the per-tile
+    tap budget of the "cuda" engine's accumulation kernel (taps beyond it
+    are folded back in, so it changes speed, not the result); the
+    "cuda_batched" kernel reads variable-length per-pixel segments and has
+    no capacity. `engine_rb` is that kernel's row-slab height (rows of
+    output per block).
     """
 
     camera: Camera = Camera()
@@ -125,6 +134,7 @@ class CmaxConfig:
     use_cgpr: bool = True                         # False -> plain grad ascent
     dtype: torch.dtype = torch.float32
     engine: str = "cuda_batched"                  # one of ENGINES
+    engine_capacity: int = 4096                   # "cuda": taps per tile
     engine_rb: int = 8                            # kernel row-slab height
 
     def __post_init__(self):

@@ -1,8 +1,17 @@
-# Kernel layer: the engine pass as a hand-written CUDA C++ kernel for
-# Hopper (csrc/megakernel.cu), its plain PyTorch version, and the binning
-# prologue that feeds it.
+# Kernel layer: the hand-written CUDA C++ kernels for Hopper (csrc/), each
+# with its plain PyTorch version, and the prologues that feed them: the
+# batched engine-pass megakernel, and the per-window engine's tile
+# accumulation and streaming blur statistics.
+from .blur_stats import blur_stats_streaming, blur_stats_streaming_plain
+from .iwe_accum import tile_accumulate, tile_accumulate_plain
 from .megakernel import megakernel_stats, megakernel_stats_plain
-from .ops import TapBins, batched_engine_pass, batched_engine_stats, bin_taps
+from .ops import (IweAccumOut, TapBins, TilePack, batched_engine_pass,
+                  batched_engine_stats, bin_taps, blur_stats,
+                  fused_engine_pass, iwe_accum, pack_tiles)
 
-__all__ = ["TapBins", "batched_engine_pass", "batched_engine_stats",
-           "bin_taps", "megakernel_stats", "megakernel_stats_plain"]
+__all__ = ["IweAccumOut", "TapBins", "TilePack", "batched_engine_pass",
+           "batched_engine_stats", "bin_taps", "blur_stats",
+           "blur_stats_streaming", "blur_stats_streaming_plain",
+           "fused_engine_pass", "iwe_accum", "megakernel_stats",
+           "megakernel_stats_plain", "pack_tiles", "tile_accumulate",
+           "tile_accumulate_plain"]

@@ -3,9 +3,10 @@ a plain C interface, loaded through `ctypes`.
 
 Each source under `csrc/` is compiled at first use into
 `build/repro_torch_kernels/` at the root of the checkout, under a name that
-carries a hash of the source and the flags, so an edited source is never
-served from a stale library. `build_all()` starts one `nvcc` per source, all
-at once, and waits for them together.
+carries a hash of the source, the shared headers (`csrc/*.cuh`) and the
+flags, so an edited source or header is never served from a stale library.
+`build_all()` starts one `nvcc` per source, all at once, and waits for them
+together.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 
 #: kernel name -> source file under csrc/
-SOURCES = {"megakernel": "megakernel.cu"}
+SOURCES = {"megakernel": "megakernel.cu", "blur_stats": "blur_stats.cu",
+           "iwe_accum": "iwe_accum.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -47,8 +49,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 

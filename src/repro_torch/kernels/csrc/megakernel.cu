@@ -25,7 +25,8 @@
 //     from slab to slab is not available: each block re-votes and
 //     re-blurs the k-1 halo rows around its slab itself, writes its
 //     partial sums to [B, n_slabs, 8], and a second kernel reduces them
-//     in slab order.
+//     in slab order. The blur and the sums are blur_sums.cuh, shared
+//     with blur_stats.cu.
 //   * No capacity, no spill. The prologue sorts the tap records by
 //     destination pixel (stable, so a pixel's records stay in tap-major,
 //     event order) and takes CSR offsets from the sorted keys. One
@@ -49,12 +50,14 @@
 //     slab; the gathers of x, y, dt, pw by event index hit L2.
 #include <cuda_runtime.h>
 
+#include "blur_sums.cuh"
+
 namespace {
+
+using namespace cmax;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxTaps = 15;
-constexpr int kStats = 8;
 
 struct Geometry {
   int N;        // events per window (row length of x, y, dt, pw)
@@ -152,73 +155,16 @@ slab_stats_kernel(const float* __restrict__ x, const float* __restrict__ y,
   __syncthreads();
 
   // ---- 2. horizontal FIR, zero beyond [0, W) ----
-  for (int q = threadIdx.x; q < 4 * plane; q += kThreads) {
-    const int c = q % W;
-    const float* row = acc + (q - c);
-    float s = 0.f;
-    for (int j = 0; j < g.k; ++j) {
-      const int cc = c + j - half;
-      if (cc >= 0 && cc < W) s = s + taps[j] * row[cc];
-    }
-    hb[q] = s;
-  }
+  fir_rows<kThreads>(acc, hb, 4 * plane, W, g.k, taps);
   __syncthreads();
 
   // ---- 3. vertical FIR (vote rows outside [0, H) are zero) + Eq. 12 ----
   float st[kStats];
-#pragma unroll
-  for (int i = 0; i < kStats; ++i) st[i] = 0.f;
-  const int out_rows = min(g.rb, H - r0);
-  for (int q = threadIdx.x; q < out_rows * W; q += kThreads) {
-    const int orow = q / W;
-    const int c = q - orow * W;
-    float v[4];
-#pragma unroll
-    for (int ch = 0; ch < 4; ++ch) {
-      const float* col = hb + ch * plane + orow * W + c;
-      float s = 0.f;
-      for (int j = 0; j < g.k; ++j) s = s + taps[j] * col[j * W];
-      v[ch] = s;
-    }
-    const float I = v[0];
-    st[0] += I;
-    st[1] += I * I;
-    st[2] += I * v[1];
-    st[3] += I * v[2];
-    st[4] += I * v[3];
-    st[5] += v[1];
-    st[6] += v[2];
-    st[7] += v[3];
-  }
+  fir_cols_stats<kThreads>(hb, plane, min(g.rb, H - r0), W, g.k, taps, st);
 
   // ---- 4. fixed-order block reduction -> partial[b, slab, :] ----
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < kStats; ++i) {
-    float s = st[i];
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) red[warp][i] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < kStats) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += red[w][threadIdx.x];
-    partial[((size_t)b * g.n_slabs + slab) * kStats + threadIdx.x] = s;
-  }
-}
-
-// out[b, i] = sum over slabs, in slab order.
-__global__ void slab_reduce_kernel(const float* __restrict__ partial,
-                                   float* __restrict__ out, int B,
-                                   int n_slabs) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= B * kStats) return;
-  const int b = t / kStats, i = t - b * kStats;
-  const float* p = partial + (size_t)b * n_slabs * kStats + i;
-  float s = 0.f;
-  for (int sl = 0; sl < n_slabs; ++sl) s += p[sl * kStats];
-  out[t] = s;
+  block_sums<kThreads>(st, &red[0][0],
+                       partial + ((size_t)b * g.n_slabs + slab) * kStats);
 }
 
 }  // namespace
@@ -256,8 +202,8 @@ int megakernel_stats_launch(const float* x, const float* y, const float* dt,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n_out = B * kStats;
-  slab_reduce_kernel<<<(n_out + 255) / 256, 256, 0, s>>>(partial, out, B,
-                                                         g.n_slabs);
+  part_sums_kernel<<<(n_out + 255) / 256, 256, 0, s>>>(partial, out, B,
+                                                       g.n_slabs);
   return (int)cudaGetLastError();
 }
 

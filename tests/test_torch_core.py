@@ -324,10 +324,14 @@ def test_config_from_reference_and_engine_names():
     assert not fixed.adaptive and fixed.fixed_iters == (10, 10, 15)
     assert config_from_reference(R.full_resolution_config()).stages == \
         cmax_camel.FULLRES.stages
-    with pytest.raises(ValueError):
-        config_from_reference(R.CmaxConfig(engine="pallas"))
+    cfg = config_from_reference(R.CmaxConfig(engine="pallas",
+                                             engine_capacity=256))
+    assert cfg.engine == "cuda" and cfg.engine_capacity == 256
+    assert config_from_reference(R.CmaxConfig()).engine_capacity == \
+        T.CmaxConfig().engine_capacity == 4096
     assert T.CmaxConfig().engine == "cuda_batched"
-    for bad in ("cuda", "pallas_batched", "pallas"):
+    assert T.CmaxConfig(engine="cuda").engine == "cuda"
+    for bad in ("triton", "pallas_batched", "pallas"):
         with pytest.raises(ValueError):
             T.CmaxConfig(engine=bad)
     assert cmax_camel.EVENTS_PER_WINDOW == 40000

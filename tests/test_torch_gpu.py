@@ -1,6 +1,8 @@
-"""The engine-pass kernel on the card: builds from the repo's source, agrees
+"""The port's kernels on the card: each builds from the repo's source, agrees
 with its plain version, gives the same bits run to run and whatever batch a
-window rides in, and carries the estimation pipeline.
+window rides in, and carries the estimation pipeline — the batched
+engine-pass kernel under `cuda_batched`, the tile-accumulation and
+blur-statistics kernels under `cuda`.
 
 Every test here is marked `gpu` and skips where there is no sm_90 card. The
 file imports no JAX (the card's machine has none); run it there with
@@ -16,7 +18,9 @@ import torch
 import repro_torch.core as T
 from repro_torch.core.pipeline import lockstep_passes
 from repro_torch.data import events
-from repro_torch.kernels import megakernel, ops
+from repro_torch.kernels import (_build, blur_stats_streaming,
+                                 blur_stats_streaming_plain, megakernel, ops,
+                                 tile_accumulate, tile_accumulate_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -142,3 +146,121 @@ def test_pipeline_on_the_card_tracks_and_is_slot_independent(windows):
     assert torch.equal(one.omega[0], res.omega[2])
     for st1, stb in zip(one.stages, res.stages):
         assert torch.equal(st1.v_final[0], stb.v_final[2])
+
+
+# ----------------------------------------------------------------------
+# the per-window engine: tile accumulation and streaming blur statistics
+# ----------------------------------------------------------------------
+
+
+def _zero_spill_capacity(cnt):
+    """The smallest power of two at or above the largest tile count."""
+    return 1 << max(int(cnt.max()) - 1, 0).bit_length()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale", [s for s, _, _ in STAGES])
+def test_tile_accumulate_matches_plain_and_is_bitwise_stable(windows, scale,
+                                                             dtype):
+    wins, om, _ = windows
+    w = torch.ones_like(wins.x)
+    cnt = ops.pack_tiles(wins, om, CAM, scale, w, capacity=1).cnt
+    for capacity in (4096, _zero_spill_capacity(cnt)):
+        pack = ops.pack_tiles(wins, om, CAM, scale, w, capacity=capacity,
+                              dtype=dtype)
+        before = tile_accumulate.launches
+        out = tile_accumulate(pack.pix, pack.deltas, p_tile=1024)
+        again = tile_accumulate(pack.pix, pack.deltas, p_tile=1024)
+        torch.cuda.synchronize()
+        assert tile_accumulate.launches == before + 2
+        assert torch.equal(out, again)
+        plain = tile_accumulate_plain(pack.pix, pack.deltas, p_tile=1024)
+        torch.testing.assert_close(out, plain, rtol=1e-4, atol=1e-4)
+        for i in range(out.shape[0]):
+            one = tile_accumulate(pack.pix[i:i + 1].contiguous(),
+                                  pack.deltas[i:i + 1].contiguous(),
+                                  p_tile=1024)
+            assert torch.equal(one[0], out[i])
+        # CPU tensors run the plain version and launch nothing
+        n = tile_accumulate.launches
+        cpu = tile_accumulate(pack.pix[:1].cpu(), pack.deltas[:1].cpu(),
+                              p_tile=1024)
+        assert tile_accumulate.launches == n
+        torch.testing.assert_close(cpu, out[:1].cpu(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("scale,k,sigma", STAGES)
+def test_blur_stats_matches_plain_and_is_bitwise_stable(windows, scale, k,
+                                                        sigma):
+    wins, om, _ = windows
+    ch = ops.iwe_accum(wins, om, CAM, scale, capacity=4096).channels
+    taps = T.gaussian_taps(k, sigma, device=om.device)
+    before = blur_stats_streaming.launches
+    out = blur_stats_streaming(ch, taps, rb=16)
+    again = blur_stats_streaming(ch, taps, rb=16)
+    torch.cuda.synchronize()
+    assert blur_stats_streaming.launches == before + 2
+    assert torch.equal(out, again)
+    plain = blur_stats_streaming_plain(ch, taps)
+    # T_x, T_y, T_z vanish (each derivative image sums to ~0), so the sums
+    # are held to each window's largest sum
+    scale_b = plain.abs().amax(dim=-1, keepdim=True)
+    assert float(((out - plain).abs() / scale_b).max()) <= 1e-3
+    P = ch.shape[-1] * ch.shape[-2]
+    v, g = T.stats_to_objective(out, P)
+    vp, gp = T.stats_to_objective(plain, P)
+    torch.testing.assert_close(v, vp, rtol=1e-4, atol=0)
+    s = gp.abs().max()
+    torch.testing.assert_close(g / s, gp / s, rtol=0, atol=1e-4)
+    for i in range(out.shape[0]):
+        assert torch.equal(blur_stats_streaming(ch[i:i + 1], taps)[0],
+                           out[i])
+    n = blur_stats_streaming.launches
+    blur_stats_streaming(ch[:1].cpu(), taps.cpu())
+    assert blur_stats_streaming.launches == n
+
+
+def test_kernels_load_from_libraries_keyed_by_source(cuda):
+    for name in _build.SOURCES:
+        lib = _build.load(name)
+        assert lib._name == str(_build._target(name))
+
+
+def test_cuda_engine_on_the_card(cuda, windows):
+    """The per-window engine through estimate_batch and estimate_sequence:
+    every engine pass launches each kernel once, the estimates track the
+    ground truth, a window's result has the same bits alone as in its
+    slot, and in the reference's small setup it agrees with the port's
+    reference engine on the card."""
+    wins, om, om_true = windows
+    cfg = dataclasses.replace(T.CmaxConfig(engine="cuda"), stages=tuple(
+        dataclasses.replace(s, max_iters=6) for s in T.CmaxConfig().stages))
+    t0, b0 = tile_accumulate.launches, blur_stats_streaming.launches
+    res = T.estimate_batch(wins, om, cfg)
+    passes = lockstep_passes(res)
+    assert tile_accumulate.launches - t0 == passes
+    assert blur_stats_streaming.launches - b0 == passes
+    err = (res.omega - om_true).norm(dim=-1)
+    assert float(err.pow(2).mean().sqrt()) < 0.5
+    one = T.estimate_batch(wins.map(lambda a: a[2:3]), om[2:3], cfg)
+    assert torch.equal(one.omega[0], res.omega[2])
+
+    t0 = tile_accumulate.launches
+    oms, seq = T.estimate_sequence(wins, om[0], cfg)
+    assert oms.shape == (4, 3) and bool(torch.isfinite(oms).all())
+    assert tile_accumulate.launches - t0 == \
+        sum(int(st.passes.sum()) for st in seq.stages)
+
+    cam = T.Camera(width=64, height=48, fx=53.0, fy=53.0, cx=32.0, cy=24.0)
+    small = dataclasses.replace(cfg, camera=cam, stages=tuple(
+        dataclasses.replace(s, max_iters=3) for s in T.CmaxConfig().stages))
+    batch = _random_batch(cam, 256, [40, 41, 42], cuda)
+    om0 = torch.tensor([[0.1, -0.05, 0.2]] * 3, device=cuda)
+    res = T.estimate_batch(batch, om0, small)
+    ref = T.estimate_batch(batch, om0, dataclasses.replace(
+        small, engine="reference"))
+    torch.testing.assert_close(res.omega, ref.omega, rtol=0, atol=5e-4)
+    for st_k, st_r in zip(res.stages, ref.stages):
+        assert st_k.iters.tolist() == st_r.iters.tolist()
+        torch.testing.assert_close(st_k.v_final, st_r.v_final, rtol=1e-3,
+                                   atol=0)

@@ -2,11 +2,12 @@
 the JAX package on the CPU.
 
 `estimate_batch`, `estimate_streams` and `estimate_batch_budgeted` run under
-both port engines (`reference`, and `cuda_batched`, whose kernel runs its
-plain version on the CPU) and are held to the JAX results on the same
-simulator windows: omega atol=5e-4, v_final rtol=1e-3
+every port engine (`reference`; `cuda` and `cuda_batched`, whose kernels run
+their plain versions on the CPU) and are held to the JAX results on the
+same simulator windows: omega atol=5e-4, v_final rtol=1e-3
 (`tests/test_megakernel.py`'s end-to-end bars) and equal iteration counts.
-Slot independence is held to the port's own B=1 bits.
+The `cuda` engine is also held to the JAX `pallas` engine at a capacity
+that spills. Slot independence is held to the port's own B=1 bits.
 """
 import dataclasses
 
@@ -25,13 +26,13 @@ import repro_torch.core as T
 from repro_torch.convert import config_from_reference, result_to_numpy, \
     window_from_numpy
 from repro_torch.core import pipeline as P
+from repro_torch.core.types import ENGINES
 from repro_torch.data import events as t_events
 from repro_torch.kernels import ops
 from helpers import small_camera
 
 torch.set_num_threads(1)
 
-ENGINES = ["reference", "cuda_batched"]
 S, K, N = 3, 2, 1024
 CAPS = np.array([[1, 2, 1], [3, 3, 3], [0, 2, 5]], np.int32)
 
@@ -161,6 +162,21 @@ def test_slot_independence_bitwise(ref, engine):
                                           tb.v_history[i].numpy())
             assert torch.equal(t1.v_final[0], tb.v_final[i])
             assert int(t1.iters[0]) == int(tb.iters[i])
+
+
+def test_cuda_engine_matches_pallas_engine(ref):
+    """The per-window engines of both packages on the same batch, at a
+    per-tile capacity at which both spill at the coarse stages."""
+    jcfg = dataclasses.replace(_jcfg(), engine="pallas", engine_capacity=512)
+    expect = jax.device_get(R.estimate_batch(ref["first"],
+                                             jnp.asarray(ref["om0"]), jcfg))
+    cfg = config_from_reference(jcfg)
+    assert (cfg.engine, cfg.engine_capacity) == ("cuda", 512)
+    first, om0 = _win(ref["first"]), torch.tensor(ref["om0"])
+    assert bool((ops.iwe_accum(first, om0, cfg.camera, 0.25,
+                               capacity=512).spilled > 0).all())
+    res = T.estimate_batch(first, om0, cfg)
+    _assert_matches(res, expect)
 
 
 def test_lockstep_passes_count_the_engine_calls(ref, monkeypatch):

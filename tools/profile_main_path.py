@@ -1,12 +1,15 @@
 """Where the time of the port's main path goes on one CUDA card.
 
     python3 tools/profile_main_path.py [--streams 8] [--events 40000]
+                                       [--engine cuda_batched|cuda]
 
-Runs `estimate_batch` (engine "cuda_batched", the paper's CONFIG) on one
-batch of POSTER windows once to warm up, then once under `torch.profiler`,
-and prints: the wall time, the device busy time summed over kernels and the
-device's idle share, the lockstep passes, and the kernels and operators
-that took the most device time. Needs a CUDA card; imports no JAX.
+Runs `estimate_batch` (the paper's CONFIG, engine "cuda_batched" unless
+`--engine` names another) on one batch of POSTER windows once to warm up,
+then once under `torch.profiler`, and prints: the wall time, the device
+busy time summed over the kernels (and copies) that ran on the card, the
+device's idle share, the lockstep passes, the kernels that took the most
+device time, and the operators whose own launches took the most. Needs a
+CUDA card; imports no JAX.
 """
 from __future__ import annotations
 
@@ -30,11 +33,21 @@ def _self_device_us(evt) -> float:
     return 0.0
 
 
+def _on_device(evt) -> bool:
+    """A kernel, copy or fill that ran on the card. An operator's row also
+    carries the device time of the kernels it launched, so busy time sums
+    these rows only (as PyTorch's own table does)."""
+    return (evt.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(evt, "is_user_annotation", False))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--streams", type=int, default=8)
     ap.add_argument("--events", type=int, default=40000)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--engine", default="cuda_batched",
+                    choices=("cuda_batched", "cuda"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_main_path: no CUDA device", file=sys.stderr)
@@ -57,7 +70,7 @@ def main() -> int:
     wins = T.EventWindow(*[torch.cat([getattr(q[0], f) for q in seqs])
                            for f in ("x", "y", "t", "p", "valid")])
     om0 = torch.cat([q[2] for q in seqs])
-    cfg = cmax_camel.CONFIG
+    cfg = dataclasses.replace(cmax_camel.CONFIG, engine=args.engine)
 
     T.estimate_batch(wins, om0, cfg)                  # warm-up (and build)
     torch.cuda.synchronize()
@@ -70,16 +83,19 @@ def main() -> int:
         wall_us = (time.perf_counter() - t0) * 1e6
 
     evts = [e for e in prof.key_averages() if _self_device_us(e) > 0]
-    busy_us = sum(_self_device_us(e) for e in evts)
+    kernels = [e for e in evts if _on_device(e)]
+    ops = [e for e in evts if not _on_device(e)]
+    busy_us = sum(_self_device_us(e) for e in kernels)
     passes = lockstep_passes(res)
     print(f"[profile] estimate_batch B={args.streams} N={args.events} "
-          f"240x180 cuda_batched on {card}: wall {wall_us:.0f} us, "
+          f"240x180 {args.engine} on {card}: wall {wall_us:.0f} us, "
           f"{passes} lockstep passes ({wall_us / passes:.0f} us/pass), "
           f"device busy {busy_us:.0f} us, idle share "
           f"{1 - busy_us / wall_us:.3f}")
-    for e in sorted(evts, key=_self_device_us, reverse=True)[:args.top]:
-        print(f"[profile] {_self_device_us(e):10.0f} us  {e.count:6d} calls"
-              f"  {e.key[:90]}")
+    for kind, rows in (("kernel", kernels), ("op", ops)):
+        for e in sorted(rows, key=_self_device_us, reverse=True)[:args.top]:
+            print(f"[profile] {kind:6s} {_self_device_us(e):10.0f} us "
+                  f"{e.count:6d} calls  {e.key[:90]}")
     return 0
 
 
