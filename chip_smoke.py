@@ -15,7 +15,8 @@ paper's size, and times the kernels. Phases:
                   megakernel_stats: variance rtol=1e-4, max-normalized
                     gradient atol=1e-4;
                   tile_accumulate: at capacity 4096 and at the zero-spill
-                    capacity, f32 and bf16 deltas: tiles rtol=atol=1e-4;
+                    capacity, f32 and bf16 deltas: tiles bitwise equal to
+                    the plain version (both sum each pixel in slot order);
                     iwe_accum's `spilled` equal to the count from the
                     per-tile tap counts, its channels (kernel + fold-back)
                     rtol=atol=1e-4 of the reference scatter;
@@ -24,7 +25,8 @@ paper's size, and times the kernels. Phases:
                     rtol=1e-4, max-normalized gradient atol=1e-4;
   3. main path  estimate_streams on 8 streams x 4 windows at 240x180 with
                 engine="cuda_batched": launch counts equal the lockstep
-                engine passes, and the first window of each stream agrees
+                engine passes (printed per stage from the stage traces),
+                and the first window of each stream agrees
                 with the port's `reference` engine on the card (omega
                 atol=5e-4, v_final rtol=1e-3);
   4. per-window estimate_sequence of one stream of 4 windows and
@@ -168,6 +170,7 @@ def check_window_kernels(T, ops, ref, tile_accumulate, tile_accumulate_plain,
                 torch.cuda.synchronize()
                 err = float((out - plain).abs().max())
                 err_tile = max(err_tile, err)
+                same = bool(torch.equal(out, plain))
                 slot_ok = all(torch.equal(tile_accumulate(
                     pack.pix[i:i + 1].contiguous(),
                     pack.deltas[i:i + 1].contiguous(), p_tile=P_TILE)[0],
@@ -177,11 +180,11 @@ def check_window_kernels(T, ops, ref, tile_accumulate, tile_accumulate_plain,
                 print(f"[kernels] tile_accumulate s={st.scale} capacity "
                       f"{cap} {str(dtype)[6:]} B={B_WINDOWS} tiles "
                       f"{pack.pix.shape[1]} occupied slots {occupied}: max "
-                      f"abs err {err:.3e}, rerun bitwise "
-                      f"{bool(torch.equal(out, again))}, B=1 == slot "
+                      f"abs err {err:.3e}, plain bitwise {same}, rerun "
+                      f"bitwise {bool(torch.equal(out, again))}, B=1 == slot "
                       f"bitwise {slot_ok}")
                 check(bool(torch.isfinite(out).all()), "non-finite tiles")
-                torch.testing.assert_close(out, plain, rtol=1e-4, atol=1e-4)
+                check(same, "tile_accumulate differs from its plain version")
                 check(bool(torch.equal(out, again)),
                       "tile_accumulate rerun is not bitwise equal")
                 check(slot_ok, "tile_accumulate B=1 differs from its slot")
@@ -344,7 +347,8 @@ def main() -> int:
 
     import repro_torch.core as T
     from repro_torch.configs import cmax_camel
-    from repro_torch.core.pipeline import lockstep_passes
+    from repro_torch.core.pipeline import (lockstep_passes,
+                                           lockstep_stage_passes)
     from repro_torch.data import events
     from repro_torch.kernels import (_build, blur_stats_streaming,
                                      blur_stats_streaming_plain, megakernel,
@@ -447,6 +451,7 @@ def main() -> int:
     check(tile_accumulate.launches == blur_stats_streaming.launches == 0,
           "the cuda_batched path launched a per-window kernel")
     passes = lockstep_passes(res)
+    main_stage_launches = lockstep_stage_passes(res)
     n_win = STREAMS * WINDOWS_PER_STREAM
     check(tuple(oms.shape) == (STREAMS, WINDOWS_PER_STREAM, 3),
           f"omega shape {tuple(oms.shape)}")
@@ -459,8 +464,12 @@ def main() -> int:
     print(f"[main] RMSE vs omega_true {err_true:.4f} rad/s; mean "
           f"iterations per stage "
           f"{[round(i, 2) for i in iters]}; lockstep passes {passes}, "
-          f"kernel launches {launches}")
+          f"kernel launches {launches}, per stage {main_stage_launches} "
+          f"(from the stage traces)")
     check(launches > 0, "the main path launched no kernel")
+    check(sum(main_stage_launches) == launches,
+          f"per-stage passes {main_stage_launches} do not add up to the "
+          f"launches {launches}")
     check(launches == passes,
           f"kernel launches {launches} != lockstep passes {passes}")
     # the tracking bar of tests/test_adaptive_pipeline.py
@@ -514,6 +523,10 @@ def main() -> int:
     b_launches = (tile_accumulate.launches, blur_stats_streaming.launches)
     b_passes = lockstep_passes(res_w)
     window_launches = [a + b for a, b in zip(seq_launches, b_launches)]
+    # a sequence of single windows takes each window's passes
+    window_stage_launches = [
+        int(st.passes.sum()) + n for st, n in zip(
+            res_seq.stages, lockstep_stage_passes(res_w))]
     err_seq = rmse(oms_seq.cpu().numpy(), om_true[0].cpu().numpy())
     err_b = rmse(res_w.omega.cpu().numpy(), om_true[:B_WINDOWS, 0].cpu()
                  .numpy())
@@ -529,6 +542,12 @@ def main() -> int:
           f"lockstep passes {b_passes}, launches {b_launches}; RMSE vs "
           f"omega_true {err_b:.4f} rad/s; mean iterations per stage "
           f"{[round(t.iters.float().mean().item(), 2) for t in res_w.stages]}")
+    print(f"[window] launches of each per-window kernel per stage, sequence "
+          f"+ batch: {window_stage_launches} (total {window_launches[0]}; "
+          f"from the stage traces)")
+    check(all(sum(window_stage_launches) == n for n in window_launches),
+          f"per-stage passes {window_stage_launches} do not add up to the "
+          f"launches {window_launches}")
     check(seq_launches == (seq_passes, seq_passes),
           f"estimate_sequence launches {seq_launches} != passes {seq_passes}")
     check(b_launches == (b_passes, b_passes),
@@ -573,8 +592,9 @@ def main() -> int:
         pro = cuda_ms(lambda: ops.bin_taps(first, om_b, weights, cam,
                                            st.scale), reps=20, hold=False)
         # bytes the function needs: x, y, dt, pw of the events with live
-        # taps, each live record, the CSR offsets, omega, taps, the output
-        nbytes = (live // 4) * 16 + live * 4 + B_WINDOWS * (P + 1) * 4 \
+        # taps, each live record and its key, the CSR offsets, omega, taps,
+        # the output
+        nbytes = (live // 4) * 16 + live * 8 + B_WINDOWS * (P + 1) * 4 \
             + B_WINDOWS * 12 + k * 4 + B_WINDOWS * 32
         flops = live * TAP_FLOPS + B_WINDOWS * P * (16 * k + 12)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -601,14 +621,16 @@ def main() -> int:
         name="megakernel_stats", route="cuda",
         source="src/repro_torch/kernels/csrc/megakernel.cu",
         replaces="src/repro/kernels/megakernel.py:184",
-        launches=launches, max_abs_err=max_abs_err, ms=full["ms"],
+        launches=launches, launches_per_stage=main_stage_launches,
+        max_abs_err=max_abs_err, ms=full["ms"],
         plain_ms=full["plain_ms"], bound_ms=full["bound_ms"],
         bound_by=full["bound_by"], library_ms=None, at=at,
         per_stage=per_stage), dict(
         name="tile_accumulate", route="cuda",
         source="src/repro_torch/kernels/csrc/iwe_accum.cu",
         replaces="src/repro/kernels/iwe_accum.py:54",
-        launches=window_launches[0], max_abs_err=err_tile,
+        launches=window_launches[0],
+        launches_per_stage=window_stage_launches, max_abs_err=err_tile,
         ms=tile_full["ms"], plain_ms=tile_full["plain_ms"],
         bound_ms=tile_full["bound_ms"], bound_by=tile_full["bound_by"],
         library_ms=tile_full["library_ms"],
@@ -616,7 +638,8 @@ def main() -> int:
         name="blur_stats_streaming", route="cuda",
         source="src/repro_torch/kernels/csrc/blur_stats.cu",
         replaces="src/repro/kernels/blur_stats.py:93",
-        launches=window_launches[1], max_abs_err=err_blur,
+        launches=window_launches[1],
+        launches_per_stage=window_stage_launches, max_abs_err=err_blur,
         ms=blur_full["ms"], plain_ms=blur_full["plain_ms"],
         bound_ms=blur_full["bound_ms"], bound_by=blur_full["bound_by"],
         library_ms=None, at=f"{at}, rb={BLUR_RB}", per_stage=blur_rows)]

@@ -437,15 +437,17 @@ def estimate_streams(windows: EventWindow, omega_inits: torch.Tensor,
     return results.omega, results
 
 
+def lockstep_stage_passes(result: WindowResult) -> List[int]:
+    """Batched engine passes a lockstep result took at each stage: the
+    entry pass plus one per iteration of its slowest window. Axis 0 is the
+    batch; any further axes (estimate_streams' window positions) are
+    separate lockstep runs."""
+    return [int((1 + st.iters.amax(dim=0)).sum()) for st in result.stages]
+
+
 def lockstep_passes(result: WindowResult) -> int:
-    """Batched engine passes a lockstep result took: per stage, the entry
-    pass plus one per iteration of its slowest window. Axis 0 is the batch;
-    any further axes (estimate_streams' window positions) are separate
-    lockstep runs."""
-    total = 0
-    for st in result.stages:
-        total += int((1 + st.iters.amax(dim=0)).sum())
-    return total
+    """Batched engine passes a lockstep result took, over all stages."""
+    return sum(lockstep_stage_passes(result))
 
 
 def measured_stage_gains(result: WindowResult) -> np.ndarray:

@@ -13,8 +13,10 @@ the design.
     (B, T, CAP) int32 pix_local with -1 for an empty slot, and
     (B, T, CAP, 4) f32 or bf16 deltas -> (B, T, P_TILE, 4) f32. Slots may
     be in any order; accumulation is always f32.
-  * One block per tile; one thread sums each output pixel in slot order:
-    no atomics, bitwise equal run to run and whatever batch a window is in.
+  * One block per tile sorts the tile's slots by pixel in shared memory
+    (a stable counting sort, in chunks), then one thread per pixel adds its
+    run in slot order: no float atomics, bitwise equal to the plain version,
+    run to run and whatever batch a window is in.
 
 `tile_accumulate_plain` is the same function in plain PyTorch (a scatter-add
 in slot order): the wrapper runs it for CPU tensors only, and
@@ -63,6 +65,8 @@ def _bind(lib):
     lib.tile_accumulate_error_string.restype = ctypes.c_char_p
     lib.tile_accumulate_max_pixels.argtypes = []
     lib.tile_accumulate_max_pixels.restype = ctypes.c_int
+    lib.tile_accumulate_smem_bytes.argtypes = [ctypes.c_int]
+    lib.tile_accumulate_smem_bytes.restype = ctypes.c_long
     lib._tile_accumulate_bound = True
     return lib
 
@@ -92,9 +96,10 @@ def tile_accumulate(pix_local: torch.Tensor, deltas: torch.Tensor, *,
             "tile_accumulate: deltas must be a contiguous (B, T, CAP, 4) "
             f"float32 or bfloat16 tensor on {dev}; got {deltas.dtype} "
             f"{tuple(deltas.shape)} on {deltas.device}")
-    if deltas.data_ptr() % 16:
-        raise ValueError("tile_accumulate: deltas must start on a 16-byte "
-                         "boundary")
+    slot_bytes = 4 * deltas.element_size()
+    if deltas.data_ptr() % slot_bytes:
+        raise ValueError(f"tile_accumulate: deltas must start on a "
+                         f"{slot_bytes}-byte boundary (one slot)")
 
     from . import _build
     lib = _bind(_build.load("iwe_accum"))

@@ -21,7 +21,8 @@ Batched engine (`"cuda_batched"`, counterpart of `"pallas_batched"`):
                         contributing tap by its destination pixel, order the
                         records with one stable sort and take per-pixel CSR
                         offsets from the sorted keys (the Alg.-3
-                        count/scan/permute at pixel granularity).
+                        count/scan/permute at pixel granularity); the
+                        sorted keys go to the kernel too.
 `batched_engine_stats`: prologue + ONE kernel call for the whole batch ->
                         (B, 8) Eq. 12 sums.
 `batched_engine_pass` : the same, then Eq. 12 -> (variance (B,), grad (B, 3)).
@@ -212,6 +213,8 @@ class TapBins(NamedTuple):
     pw: torch.Tensor       # (B, N) f32 polarity * retention weight
     rec: torch.Tensor      # (B, 4N) int32 tap*N + event, pixel-ordered
     pix_off: torch.Tensor  # (B, P+1) int32 CSR offsets; [:, P] = live taps
+    key: torch.Tensor      # (B, 4N) int32 each record's pixel (sorted; P
+                           # past the live records)
 
 
 def bin_taps(ev: EventWindow, omega: torch.Tensor, weights: torch.Tensor,
@@ -241,7 +244,8 @@ def bin_taps(ev: EventWindow, omega: torch.Tensor, weights: torch.Tensor,
     c = lambda a: a.to(f32).contiguous()
     return TapBins(x=c(ev.x), y=c(ev.y), dt=c(dt), pw=c(pw),
                    rec=order.to(torch.int32).contiguous(),
-                   pix_off=pix_off.to(torch.int32).contiguous())
+                   pix_off=pix_off.to(torch.int32).contiguous(),
+                   key=key_s.to(torch.int32).contiguous())
 
 
 def batched_engine_stats(ev: EventWindow, omega: torch.Tensor, cam: Camera,

@@ -21,6 +21,7 @@ from repro_torch.data import events
 from repro_torch.kernels import (_build, blur_stats_streaming,
                                  blur_stats_streaming_plain, megakernel, ops,
                                  tile_accumulate, tile_accumulate_plain)
+from repro_torch.kernels.iwe_accum import _bind as _bind_tile
 
 pytestmark = pytest.mark.gpu
 
@@ -175,7 +176,7 @@ def test_tile_accumulate_matches_plain_and_is_bitwise_stable(windows, scale,
         assert tile_accumulate.launches == before + 2
         assert torch.equal(out, again)
         plain = tile_accumulate_plain(pack.pix, pack.deltas, p_tile=1024)
-        torch.testing.assert_close(out, plain, rtol=1e-4, atol=1e-4)
+        assert torch.equal(out, plain)
         for i in range(out.shape[0]):
             one = tile_accumulate(pack.pix[i:i + 1].contiguous(),
                                   pack.deltas[i:i + 1].contiguous(),
@@ -264,3 +265,142 @@ def test_cuda_engine_on_the_card(cuda, windows):
         assert st_k.iters.tolist() == st_r.iters.tolist()
         torch.testing.assert_close(st_k.v_final, st_r.v_final, rtol=1e-3,
                                    atol=0)
+
+
+# ----------------------------------------------------------------------
+# the hard cases of the two sorted kernels
+# ----------------------------------------------------------------------
+
+
+def _tile_case(name, dtype, device):
+    """(pix, deltas, p_tile) of one hard case for tile_accumulate: two
+    windows of three tiles, drawn from a seed."""
+    rng = np.random.default_rng(TILE_CASES.index(name))
+    p_tile, cap = 1024, 4096
+    if name == "one_pixel":            # every slot of a tile on one pixel
+        pix = np.full((2, 3, cap), 517)
+        pix[1] = 3
+    elif name == "ragged_capacity":    # capacity not a multiple of a chunk
+        cap = 4096 * 2 + 1237
+        pix = rng.integers(0, p_tile, (2, 3, cap))
+    elif name == "empty_slots":        # -1 interleaved and trailing
+        pix = rng.integers(0, 40, (2, 3, cap))
+        pix[:, :, ::3] = -1
+        pix[:, :, 3000:] = -1
+    elif name == "empty_tile":         # a tile with no occupied slot
+        pix = rng.integers(-1, p_tile, (2, 3, cap))
+        pix[0, 1] = -1
+        pix[1, :, :] = -1
+    elif name == "shuffled":           # slots in no order, and other ids
+        pix = rng.permutation(np.repeat(np.arange(-1, 64), 180))[:cap]
+        pix = np.broadcast_to(pix, (2, 3, cap)).copy()
+        pix[1, 2] = rng.integers(-7, p_tile + 9, cap)   # out-of-tile ids
+    elif name == "zero_spill":         # the s = 1/4 zero-spill capacity
+        cap = 65536
+        pix = rng.integers(0, p_tile, (2, 3, cap))
+        pix[:, :, 45000:] = -1
+    elif name in ("p_tile_2048", "p_tile_4096"):
+        p_tile = int(name[-4:])
+        pix = rng.integers(-1, p_tile, (2, 3, cap))
+    else:
+        raise ValueError(name)
+    deltas = rng.normal(size=pix.shape + (4,)).astype(np.float32)
+    return (torch.tensor(pix, dtype=torch.int32, device=device),
+            torch.tensor(deltas, device=device).to(dtype).contiguous(),
+            p_tile)
+
+
+TILE_CASES = ["one_pixel", "ragged_capacity", "empty_slots", "empty_tile",
+              "shuffled", "zero_spill", "p_tile_2048", "p_tile_4096"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_tile_accumulate_hard_cases_bitwise(cuda, case, dtype):
+    """The sorted tile kernel is bit for bit the plain version (each pixel
+    sums its slots in slot order) on the inputs a sort gets wrong first,
+    on a rerun, and for each window alone."""
+    pix, deltas, p_tile = _tile_case(case, dtype, cuda)
+    out = tile_accumulate(pix, deltas, p_tile=p_tile)
+    again = tile_accumulate(pix, deltas, p_tile=p_tile)
+    plain = tile_accumulate_plain(pix, deltas, p_tile=p_tile)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    assert torch.equal(out, again)
+    for i in range(2):
+        one = tile_accumulate(pix[i:i + 1].contiguous(),
+                              deltas[i:i + 1].contiguous(), p_tile=p_tile)
+        assert torch.equal(one[0], out[i])
+    if case == "empty_tile":
+        assert float(out[0, 1].abs().max()) == 0.0
+
+
+def _one_pixel_batch(n, device):
+    """Windows whose events all warp (at omega = 0) onto one pixel: four
+    runs of n records each, longer than the kernel's chunk of records."""
+    rng = np.random.default_rng(5)
+    cols = []
+    for b in range(3):
+        x = np.full(n, 20.3 + b, np.float32)
+        y = np.full(n, 11.6, np.float32)
+        t = np.sort(rng.uniform(0, 0.03, n)).astype(np.float32)
+        p = rng.choice([-1.0, 1.0], n).astype(np.float32)
+        cols.append((x, y, t, p, np.ones(n, bool)))
+    return T.EventWindow(*[torch.tensor(np.stack(c), device=device)
+                           for c in zip(*cols)])
+
+
+MEGA_CASES = [("one_pixel", 9), ("ragged_rows", 9), ("k15", 15)]
+
+
+@pytest.mark.parametrize("case,k", MEGA_CASES)
+def test_megakernel_hard_cases(cuda, case, k):
+    """Against the plain version at the kernel's bars, bitwise on a rerun
+    and at B=1 against each slot: a run far longer than a chunk, a grid
+    whose height is no multiple of the row slab nor its size of the vote's
+    pixel range, and the longest blur the kernel takes."""
+    cam = T.Camera(width=60, height=45, fx=53.0, fy=53.0, cx=30.0, cy=22.5)
+    if case == "one_pixel":
+        wins = _one_pixel_batch(8192, cuda)
+        om = torch.zeros((3, 3), device=cuda)
+    else:
+        wins = _random_batch(cam, 4096, [60, 61, 62], cuda)
+        om = torch.tensor([[0.4, -0.3, 0.8], [-1.0, 0.2, 0.1],
+                           [0.0, 0.5, -0.6]], device=cuda)
+    bins = ops.bin_taps(wins, om, torch.ones_like(wins.x), cam, 1.0)
+    if case == "one_pixel":
+        runs = bins.pix_off[:, 1:] - bins.pix_off[:, :-1]
+        assert int(runs.max()) == 8192 and int((runs > 0).sum()) == 12
+    assert 45 % 8 != 0 and (45 * 60) % megakernel.launch_config(
+        45, 60, k, 8).vote_pixels != 0
+    fir = T.gaussian_taps(k, 1.5, device=cuda)
+    kw = dict(H=45, W=60, rb=8, scale=1.0, fx=cam.fx, fy=cam.fy, cx=cam.cx,
+              cy=cam.cy)
+    out = megakernel.megakernel_stats(*bins, om, fir, **kw)
+    again = megakernel.megakernel_stats(*bins, om, fir, **kw)
+    plain = megakernel.megakernel_stats_plain(*bins, om, fir, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    v, g = T.stats_to_objective(out, 45 * 60)
+    vp, gp = T.stats_to_objective(plain, 45 * 60)
+    torch.testing.assert_close(v, vp, rtol=1e-4, atol=0)
+    s = gp.abs().max()
+    torch.testing.assert_close(g / s, gp / s, rtol=0, atol=1e-4)
+    for i in range(3):
+        one = megakernel.megakernel_stats(
+            *[a[i:i + 1].contiguous() for a in bins], om[i:i + 1], fir, **kw)
+        assert torch.equal(one[0], out[i])
+
+
+def test_launch_configs_match_the_sources(cuda):
+    lib = megakernel._bind(_build.load("megakernel"))
+    for H, W in ((45, 60), (90, 120), (180, 240)):
+        for k in (3, 5, 9, 15):
+            cfg = megakernel.launch_config(H, W, k, 8)
+            assert cfg.smem == lib.megakernel_smem_bytes(W, 8, k)
+            assert cfg.vote_pixels <= lib.megakernel_max_vote_pixels()
+    tile = _bind_tile(_build.load("iwe_accum"))
+    assert tile.tile_accumulate_max_pixels() == 4096
+    for p_tile in (1, 1000, 1024, 2048, 4096):
+        assert tile.tile_accumulate_smem_bytes(p_tile) <= \
+            megakernel.SMEM_LIMIT

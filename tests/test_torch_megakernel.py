@@ -137,6 +137,64 @@ def test_bin_taps_csr_layout():
                 assert (int(w.y0[b, e]) + dy) * Ws + int(w.x0[b, e]) + dx == p
 
 
+def test_bin_taps_keys_are_each_records_pixel():
+    """The prologue's sorted keys, which the kernel reads for a record's
+    pixel, agree with the CSR offsets at every stage, and the plain version
+    (which finds each pixel from the offsets) does not read them."""
+    jcam, jb, om, wts = _batch(n=300, b=2, seed=41)
+    cam = _cam(jcam)
+    ev = _win(jb)
+    for scale, k in STAGES:
+        bins = ops.bin_taps(ev, torch.tensor(om), torch.tensor(wts), cam,
+                            scale)
+        Hs, Ws = cam.grid(scale)
+        P = Hs * Ws
+        assert bins.key.dtype == torch.int32 and bins.key.is_contiguous()
+        assert bins.key.shape == bins.rec.shape
+        j = torch.arange(bins.key.shape[1])
+        for b in range(2):
+            off = bins.pix_off[b].long()
+            live = j < off[P]
+            pix = torch.searchsorted(off, j, right=True) - 1
+            assert torch.equal(bins.key[b][live].long(), pix[live])
+            assert bool((bins.key[b][~live] == P).all())
+        fir = T.gaussian_taps(k, 1.0)
+        kw = dict(H=Hs, W=Ws, rb=8, scale=scale, fx=cam.fx, fy=cam.fy,
+                  cx=cam.cx, cy=cam.cy)
+        out = megakernel.megakernel_stats_plain(*bins, torch.tensor(om),
+                                                fir, **kw)
+        blind = megakernel.megakernel_stats_plain(
+            *bins._replace(key=torch.zeros_like(bins.key)),
+            torch.tensor(om), fir, **kw)
+        assert torch.equal(out, blind)
+
+
+@pytest.mark.parametrize("k", [3, 5, 7, 9, 11, 13, 15])
+def test_launch_config_fits_every_stage(k):
+    """The kernel's grid at every stage of the paper's configuration, for
+    every blur length the kernel takes: the slab block's shared memory stays
+    within what a Hopper block may use, the vote's pixel ranges cover the
+    grid with at least MIN_VOTE_BLOCKS blocks per window where the grid
+    allows, and the slabs cover every row."""
+    from repro_torch.configs.cmax_camel import CONFIG
+    rb = CONFIG.engine_rb
+    for st in CONFIG.stages:
+        H, W = st.grid(CONFIG.camera)
+        cfg = megakernel.launch_config(H, W, k, rb)
+        assert cfg.smem == 16 * (rb + k - 1) * W <= megakernel.SMEM_LIMIT
+        vp = cfg.vote_pixels
+        assert 32 <= vp <= megakernel.MAX_VOTE_PIXELS and vp & (vp - 1) == 0
+        assert vp * (cfg.vote_blocks - 1) < H * W <= vp * cfg.vote_blocks
+        assert cfg.vote_blocks >= megakernel.MIN_VOTE_BLOCKS or vp == 32
+        assert rb * (cfg.n_slabs - 1) < H <= rb * cfg.n_slabs
+    # the paper's grids, as PERF.md states them
+    grids = [megakernel.launch_config(*st.grid(CONFIG.camera), 9, rb)
+             for st in CONFIG.stages]
+    assert [(g.vote_pixels, g.vote_blocks, g.n_slabs) for g in grids] == \
+        [(64, 43, 6), (256, 43, 12), (256, 169, 23)]
+    assert megakernel.launch_config(180, 240, 15, rb).smem == 84480
+
+
 def test_slot_independence_bitwise():
     """The port's stats for a window are bit-identical at B=1 and in every
     slot of a B=4 batch."""

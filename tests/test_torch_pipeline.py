@@ -194,6 +194,8 @@ def test_lockstep_passes_count_the_engine_calls(ref, monkeypatch):
                                 torch.tensor(ref["om0"]),
                                 _tcfg("cuda_batched"))
     assert len(calls) == P.lockstep_passes(res) > 0
+    per_stage = P.lockstep_stage_passes(res)
+    assert len(per_stage) == len(res.stages) and sum(per_stage) == len(calls)
     assert set(calls) == {S}
 
 

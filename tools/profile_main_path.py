@@ -8,7 +8,10 @@ Runs `estimate_batch` (the paper's CONFIG, engine "cuda_batched" unless
 then once under `torch.profiler`, and prints: the wall time, the device
 busy time summed over the kernels (and copies) that ran on the card, the
 device's idle share, the lockstep passes, the kernels that took the most
-device time, and the operators whose own launches took the most. Needs a
+device time (in total and per lockstep pass), and the operators whose own
+launches took the most. Then, per stage, it profiles `--reps` engine passes
+of the same batch at the IMU warm start (prologue and kernels, as the
+pipeline calls them) and prints each kernel's device time per pass. Needs a
 CUDA card; imports no JAX.
 """
 from __future__ import annotations
@@ -46,6 +49,7 @@ def main() -> int:
     ap.add_argument("--streams", type=int, default=8)
     ap.add_argument("--events", type=int, default=40000)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--engine", default="cuda_batched",
                     choices=("cuda_batched", "cuda"))
     args = ap.parse_args()
@@ -55,7 +59,8 @@ def main() -> int:
 
     import repro_torch.core as T
     from repro_torch.configs import cmax_camel
-    from repro_torch.core.pipeline import lockstep_passes
+    from repro_torch.core.pipeline import (lockstep_passes,
+                                           lockstep_stage_passes)
     from repro_torch.data import events
 
     card = subprocess.run(
@@ -87,16 +92,55 @@ def main() -> int:
     ops = [e for e in evts if not _on_device(e)]
     busy_us = sum(_self_device_us(e) for e in kernels)
     passes = lockstep_passes(res)
+    per_stage = lockstep_stage_passes(res)
     print(f"[profile] estimate_batch B={args.streams} N={args.events} "
           f"240x180 {args.engine} on {card}: wall {wall_us:.0f} us, "
-          f"{passes} lockstep passes ({wall_us / passes:.0f} us/pass), "
-          f"device busy {busy_us:.0f} us, idle share "
+          f"{passes} lockstep passes {per_stage} per stage "
+          f"({wall_us / passes:.0f} us/pass), device busy {busy_us:.0f} us "
+          f"({busy_us / passes:.0f} us/pass), idle share "
           f"{1 - busy_us / wall_us:.3f}")
     for kind, rows in (("kernel", kernels), ("op", ops)):
         for e in sorted(rows, key=_self_device_us, reverse=True)[:args.top]:
-            print(f"[profile] {kind:6s} {_self_device_us(e):10.0f} us "
-                  f"{e.count:6d} calls  {e.key[:90]}")
+            us = _self_device_us(e)
+            print(f"[profile] {kind:6s} {us:10.0f} us {us / passes:8.1f} "
+                  f"us/pass {e.count:6d} calls  {e.key[:80]}")
+    for st in cfg.stages:
+        stage_breakdown(T, cfg, st, wins, om0, args, card)
     return 0
+
+
+def stage_breakdown(T, cfg, st, wins, om0, args, card) -> None:
+    """Device time per engine pass of each kernel at one stage."""
+    from repro_torch.kernels import ops
+    cam = cfg.camera
+    weights = T.sort_events(wins, om0, cam, st).weights
+    fir = T.gaussian_taps(st.blur_taps, st.blur_sigma, device=om0.device)
+    if cfg.engine == "cuda_batched":
+        def engine_pass():
+            ops.batched_engine_stats(wins, om0, cam, st.scale, st.blur_taps,
+                                     st.blur_sigma, weights=weights,
+                                     rb=cfg.engine_rb, fir=fir)
+    else:
+        def engine_pass():
+            ops.fused_engine_pass(wins, om0, cam, st.scale, st.blur_taps,
+                                  st.blur_sigma, weights=weights,
+                                  capacity=cfg.engine_capacity, fir=fir)
+    for _ in range(3):
+        engine_pass()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(args.reps):
+            engine_pass()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if _on_device(e) and _self_device_us(e) > 0]
+    busy = sum(_self_device_us(e) for e in rows) / args.reps
+    print(f"[stage] s={st.scale} k={st.blur_taps} B={wins.x.shape[0]} "
+          f"{cfg.engine} on {card}: device {busy:.1f} us per engine pass")
+    for e in sorted(rows, key=_self_device_us, reverse=True)[:args.top]:
+        print(f"[stage]   {_self_device_us(e) / args.reps:9.1f} us/pass "
+              f"{e.count // args.reps:4d} launches/pass  {e.key[:80]}")
 
 
 if __name__ == "__main__":
