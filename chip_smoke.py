@@ -25,7 +25,8 @@ paper's size, and times the kernels. Phases:
                     rtol=1e-4, max-normalized gradient atol=1e-4;
   3. main path  estimate_streams on 8 streams x 4 windows at 240x180 with
                 engine="cuda_batched": launch counts equal the lockstep
-                engine passes (printed per stage from the stage traces),
+                engine passes (the passes per stage, from the stage
+                traces, are printed and must add up to the launches),
                 and the first window of each stream agrees
                 with the port's `reference` engine on the card (omega
                 atol=5e-4, v_final rtol=1e-3);
@@ -451,7 +452,7 @@ def main() -> int:
     check(tile_accumulate.launches == blur_stats_streaming.launches == 0,
           "the cuda_batched path launched a per-window kernel")
     passes = lockstep_passes(res)
-    main_stage_launches = lockstep_stage_passes(res)
+    main_stage_passes = lockstep_stage_passes(res)
     n_win = STREAMS * WINDOWS_PER_STREAM
     check(tuple(oms.shape) == (STREAMS, WINDOWS_PER_STREAM, 3),
           f"omega shape {tuple(oms.shape)}")
@@ -464,11 +465,11 @@ def main() -> int:
     print(f"[main] RMSE vs omega_true {err_true:.4f} rad/s; mean "
           f"iterations per stage "
           f"{[round(i, 2) for i in iters]}; lockstep passes {passes}, "
-          f"kernel launches {launches}, per stage {main_stage_launches} "
-          f"(from the stage traces)")
+          f"kernel launches {launches}; lockstep passes per stage "
+          f"{main_stage_passes} (from the stage traces)")
     check(launches > 0, "the main path launched no kernel")
-    check(sum(main_stage_launches) == launches,
-          f"per-stage passes {main_stage_launches} do not add up to the "
+    check(sum(main_stage_passes) == launches,
+          f"per-stage passes {main_stage_passes} do not add up to the "
           f"launches {launches}")
     check(launches == passes,
           f"kernel launches {launches} != lockstep passes {passes}")
@@ -524,7 +525,7 @@ def main() -> int:
     b_passes = lockstep_passes(res_w)
     window_launches = [a + b for a, b in zip(seq_launches, b_launches)]
     # a sequence of single windows takes each window's passes
-    window_stage_launches = [
+    window_stage_passes = [
         int(st.passes.sum()) + n for st, n in zip(
             res_seq.stages, lockstep_stage_passes(res_w))]
     err_seq = rmse(oms_seq.cpu().numpy(), om_true[0].cpu().numpy())
@@ -542,11 +543,11 @@ def main() -> int:
           f"lockstep passes {b_passes}, launches {b_launches}; RMSE vs "
           f"omega_true {err_b:.4f} rad/s; mean iterations per stage "
           f"{[round(t.iters.float().mean().item(), 2) for t in res_w.stages]}")
-    print(f"[window] launches of each per-window kernel per stage, sequence "
-          f"+ batch: {window_stage_launches} (total {window_launches[0]}; "
-          f"from the stage traces)")
-    check(all(sum(window_stage_launches) == n for n in window_launches),
-          f"per-stage passes {window_stage_launches} do not add up to the "
+    print(f"[window] passes per stage, sequence + batch: "
+          f"{window_stage_passes} (from the stage traces; launches of each "
+          f"per-window kernel {window_launches[0]})")
+    check(all(sum(window_stage_passes) == n for n in window_launches),
+          f"per-stage passes {window_stage_passes} do not add up to the "
           f"launches {window_launches}")
     check(seq_launches == (seq_passes, seq_passes),
           f"estimate_sequence launches {seq_launches} != passes {seq_passes}")
@@ -592,10 +593,13 @@ def main() -> int:
         pro = cuda_ms(lambda: ops.bin_taps(first, om_b, weights, cam,
                                            st.scale), reps=20, hold=False)
         # bytes the function needs: x, y, dt, pw of the events with live
-        # taps, each live record and its key, the CSR offsets, omega, taps,
-        # the output
-        nbytes = (live // 4) * 16 + live * 8 + B_WINDOWS * (P + 1) * 4 \
+        # taps, each live record, the CSR offsets, omega, taps, the output.
+        # The kernel also reads each live record's sorted key, which the
+        # function does not need (the offsets give each record's pixel):
+        # that is the kernel's own traffic, printed apart, not in the bound
+        nbytes = (live // 4) * 16 + live * 4 + B_WINDOWS * (P + 1) * 4 \
             + B_WINDOWS * 12 + k * 4 + B_WINDOWS * 32
+        key_bytes = live * 4
         flops = live * TAP_FLOPS + B_WINDOWS * P * (16 * k + 12)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOPS * 1e3
@@ -603,13 +607,15 @@ def main() -> int:
         row = dict(scale=st.scale, k=k, ms=kern, plain_ms=plain,
                    prologue_ms=pro, bound_ms=bound,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   bytes=nbytes, flops=flops)
+                   bytes=nbytes, flops=flops, key_bytes=key_bytes)
         per_stage.append(row)
         print(f"[timing] s={st.scale} k={k} B={B_WINDOWS}: kernel "
               f"{kern * 1e3:.1f} us/pass, prologue {pro * 1e3:.1f} us/pass, "
               f"plain {plain * 1e3:.1f} us/pass, bound {bound * 1e3:.2f} us "
               f"({row['bound_by']}: {nbytes} B, {flops} flop) = "
-              f"{100 * bound / kern:.2f}% of bound reached, on {card}")
+              f"{100 * bound / kern:.2f}% of bound reached; the kernel also "
+              f"reads {key_bytes} B of sorted keys "
+              f"({key_bytes / HBM_BYTES_PER_S * 1e6:.2f} us), on {card}")
 
     tile_rows, blur_rows = time_window_kernels(
         T, ops, tile_accumulate, tile_accumulate_plain, blur_stats_streaming,
@@ -621,7 +627,7 @@ def main() -> int:
         name="megakernel_stats", route="cuda",
         source="src/repro_torch/kernels/csrc/megakernel.cu",
         replaces="src/repro/kernels/megakernel.py:184",
-        launches=launches, launches_per_stage=main_stage_launches,
+        launches=launches, passes_per_stage=main_stage_passes,
         max_abs_err=max_abs_err, ms=full["ms"],
         plain_ms=full["plain_ms"], bound_ms=full["bound_ms"],
         bound_by=full["bound_by"], library_ms=None, at=at,
@@ -630,7 +636,7 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/iwe_accum.cu",
         replaces="src/repro/kernels/iwe_accum.py:54",
         launches=window_launches[0],
-        launches_per_stage=window_stage_launches, max_abs_err=err_tile,
+        passes_per_stage=window_stage_passes, max_abs_err=err_tile,
         ms=tile_full["ms"], plain_ms=tile_full["plain_ms"],
         bound_ms=tile_full["bound_ms"], bound_by=tile_full["bound_by"],
         library_ms=tile_full["library_ms"],
@@ -639,7 +645,7 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/blur_stats.cu",
         replaces="src/repro/kernels/blur_stats.py:93",
         launches=window_launches[1],
-        launches_per_stage=window_stage_launches, max_abs_err=err_blur,
+        passes_per_stage=window_stage_passes, max_abs_err=err_blur,
         ms=blur_full["ms"], plain_ms=blur_full["plain_ms"],
         bound_ms=blur_full["bound_ms"], bound_by=blur_full["bound_by"],
         library_ms=None, at=f"{at}, rb={BLUR_RB}", per_stage=blur_rows)]

@@ -21,12 +21,14 @@
 //
 // Design: a stable counting sort of each tile's slots by pixel in shared
 // memory, then one thread per pixel folds its run. A tile's pixels are
-// dealt to `groups` blocks of 1024 threads (pixel p to block p % groups),
+// dealt to G blocks of 1024 threads (pixel p to block p % G),
 // so that the coarse stages, which have few tiles, fill more of the card
 // in their one wave (48 tiles at s = 1/4, B = 8, on 132 SMs: 96 blocks);
 // dealt rather than cut into ranges, so that a feature's pixels, and its
 // slots, spread over the blocks. Each pixel is summed by one thread
-// whatever the split, so the result does not depend on it.
+// whatever the split, so the result does not depend on it. G is a
+// template parameter, so a launch with one block per tile (G = 1: the
+// tiles fill a wave) carries none of the dealing's arithmetic.
 // A block takes its tile's slots in chunks of kChunk; per chunk:
 //   1. keys: coalesced loads of the slots' pixels (four per thread, all in
 //      flight at once), then of the deltas of the slots on the block's
@@ -54,7 +56,7 @@
 // (a scatter-add in slot order) sums it: the result is bitwise equal to
 // it, run to run and whatever batch a window is in. No float atomics; the
 // only shared-memory writes that could meet are to distinct counters.
-// Work per tile is O(slots x groups + p_tile) per chunk (the keys are read
+// Work per tile is O(slots x G + p_tile) per chunk (the keys are read
 // by every block of the tile), where a walk in which every thread compares
 // every slot would be O(slots x p_tile).
 //
@@ -138,13 +140,12 @@ inline int pixel_groups(int n_tiles, int p_tile, int sms) {
   return g;
 }
 
-template <typename T>
+template <typename T, int G>
 __global__ void __launch_bounds__(kThreads, 1)
 tile_accumulate_kernel(const int* __restrict__ pix,
                        const T* __restrict__ deltas,
-                       float* __restrict__ out, int cap, int p_tile,
-                       int groups) {
-  const int pg = p_tile / groups;         // the block's pixels
+                       float* __restrict__ out, int cap, int p_tile) {
+  const int pg = p_tile / G;              // the block's pixels
   const int rw = ranking_warps(pg);
   extern __shared__ __align__(16) unsigned char smem[];
   float4* s_delta = reinterpret_cast<float4*>(smem);   // [kChunk], sorted
@@ -156,9 +157,8 @@ tile_accumulate_kernel(const int* __restrict__ pix,
   __shared__ int s_seg[kSegments + 1];   // compacted offset of a segment
   __shared__ int s_warp[kWarps];
 
-  const size_t tile = blockIdx.x / groups;
-  const int group = (int)(blockIdx.x % groups);
-  const int shift = __ffs(groups) - 1;    // groups is a power of two
+  const size_t tile = blockIdx.x / G;
+  const unsigned group = blockIdx.x % G;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const unsigned lower = (1u << lane) - 1u;
   const int* pt = pix + tile * cap;
@@ -186,8 +186,7 @@ tile_accumulate_kernel(const int* __restrict__ pix,
       const int j = t + i * kThreads;
       // an empty slot (-1) is never < p_tile
       const unsigned p = j < n ? (unsigned)pt[j0 + j] : ~0u;
-      key[i] = p < (unsigned)p_tile && (int)(p & (groups - 1)) == group
-                   ? (int)(p >> shift) : -1;
+      key[i] = p < (unsigned)p_tile && p % G == group ? (int)(p / G) : -1;
     }
     // the block's slots' deltas are fetched now and land during the rank
     float4 d[kSlotsPerThread];
@@ -334,7 +333,7 @@ tile_accumulate_kernel(const int* __restrict__ pix,
   for (int i = 0; i < kMaxPpt; ++i) {
     const int p = t * ppt + i;
     if (i < ppt && p < pg)
-      ot[p * groups + group] =
+      ot[p * G + group] =
           make_float4(a[i][0], a[i][1], a[i][2], a[i][3]);
   }
 }
@@ -349,13 +348,16 @@ int launch(const int* pix, const T* deltas, float* out, int n_tiles, int cap,
                                  device);
   if (err != cudaSuccess) return (int)err;
   const int groups = pixel_groups(n_tiles, p_tile, sms);
+  void (*kernel)(const int*, const T*, float*, int, int) =
+      groups == 4 ? tile_accumulate_kernel<T, 4>
+      : groups == 2 ? tile_accumulate_kernel<T, 2>
+                    : tile_accumulate_kernel<T, 1>;
   const size_t smem = smem_bytes(p_tile / groups);
-  err = cudaFuncSetAttribute(tile_accumulate_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  tile_accumulate_kernel<T><<<n_tiles * groups, kThreads, smem, s>>>(
-      pix, deltas, out, cap, p_tile, groups);
+  kernel<<<n_tiles * groups, kThreads, smem, s>>>(pix, deltas, out, cap,
+                                                  p_tile);
   return (int)cudaGetLastError();
 }
 

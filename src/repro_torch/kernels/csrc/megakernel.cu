@@ -296,12 +296,14 @@ slab_stats_kernel(const float* __restrict__ img,
 
 extern "C" {
 
-// Dynamic shared memory of one slab block (bytes).
+// Dynamic shared memory of one slab block (bytes), and the largest pixel
+// range of one vote block. The wrapper's launch_config chooses the grid and
+// the launcher below rejects a range it cannot take; these two let a test
+// hold launch_config to this file once, not every call.
 long megakernel_smem_bytes(int W, int rb, int k) {
   return 4L * (long)(rb + k - 1) * (long)W * (long)sizeof(float);
 }
 
-// Largest pixel range of one vote block.
 int megakernel_max_vote_pixels() { return kMaxVotePixels; }
 
 // Launches the four kernels on `stream`; returns the CUDA error code

@@ -196,10 +196,6 @@ def megakernel_stats(x, y, dt, pw, rec, pix_off, key, omega, fir, *, H: int,
     from . import _build
     lib = _bind(_build.load("megakernel"))
     cfg = launch_config(H, W, k, rb)
-    if cfg.smem != lib.megakernel_smem_bytes(W, rb, k) \
-            or cfg.vote_pixels > lib.megakernel_max_vote_pixels():
-        raise RuntimeError("megakernel_stats: launch_config disagrees with "
-                           "csrc/megakernel.cu")
     if cfg.smem > SMEM_LIMIT:
         raise ValueError(f"megakernel_stats: a {W}-wide slab of {rb} rows "
                          f"with k={k} needs {cfg.smem} bytes of shared "
