@@ -22,7 +22,8 @@ paper's size, and times the kernels. Phases:
                     rtol=atol=1e-4 of the reference scatter;
                   blur_stats_streaming: on those channel stacks, the sums
                     within 1e-3 of each window's largest, variance
-                    rtol=1e-4, max-normalized gradient atol=1e-4;
+                    rtol=1e-4, max-normalized gradient atol=1e-4 (its
+                    launch geometry and compiler report are printed);
   3. main path  estimate_streams on 8 streams x 4 windows at 240x180 with
                 engine="cuda_batched": launch counts equal the lockstep
                 engine passes (the passes per stage, from the stage
@@ -35,7 +36,8 @@ paper's size, and times the kernels. Phases:
                 engine_capacity=4096: each new kernel's launches equal the
                 engine passes taken, RMSE vs omega_true < 0.5 rad/s, the
                 first windows agree with the reference engine as in 3;
-  5. timing     each kernel's time per launch (CUDA events), its prologue's,
+  5. timing     each kernel's time per launch (CUDA events; the blur kernel
+                at B=8 and at B=1, the estimate_sequence path), its prologue's,
                 its plain version's and, where one PyTorch call computes the
                 same function, that call's, against the bound set by the
                 bytes and operations the function needs.
@@ -50,6 +52,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -74,7 +77,26 @@ STREAMS, WINDOWS_PER_STREAM = 8, 4
 CAPACITY = 4096               # the "cuda" engine's default per-tile budget
 TILE = (8, 128)
 P_TILE = TILE[0] * TILE[1]
-BLUR_RB = 16
+
+
+def ptxas_entries(log: str) -> dict:
+    """{entry function: its lines of the compiler's report (registers,
+    shared memory, spills)} from an `nvcc -Xptxas -v` log."""
+    entries, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = entries.setdefault(m.group(1), [])
+        elif cur is not None and ("registers" in line or "spill" in line):
+            cur.append(line.strip())
+    return entries
+
+
+def blur_geometry(cfg) -> str:
+    """The blur kernel's launch geometry at one stage, in words."""
+    return (f"{cfg.n_strips} strips of 64 columns x {cfg.n_bands} bands of "
+            f"{cfg.band_rows} rows per window: {cfg.items} one-warp blocks, "
+            f"{cfg.smem} B shared each")
 
 
 def check(cond, msg):
@@ -146,7 +168,7 @@ def zero_spill_capacity(cnt) -> int:
 
 def check_window_kernels(T, ops, ref, tile_accumulate, tile_accumulate_plain,
                          blur_stats_streaming, blur_stats_streaming_plain,
-                         cfg, first, om_b):
+                         blur_launch_config, cfg, first, om_b):
     """Phase 2 for the per-window engine's two kernels; returns what the
     timing phase needs per stage and the largest errors."""
     cam = cfg.camera
@@ -209,8 +231,8 @@ def check_window_kernels(T, ops, ref, tile_accumulate, tile_accumulate_plain,
         ch = acc.channels
         taps = T.gaussian_taps(st.blur_taps, st.blur_sigma,
                                device=ch.device)
-        out = blur_stats_streaming(ch, taps, rb=BLUR_RB)
-        again = blur_stats_streaming(ch, taps, rb=BLUR_RB)
+        out = blur_stats_streaming(ch, taps)
+        again = blur_stats_streaming(ch, taps)
         plain = blur_stats_streaming_plain(ch, taps)
         torch.cuda.synchronize()
         # T_x, T_y, T_z vanish (each derivative image sums to ~0), so the
@@ -223,10 +245,11 @@ def check_window_kernels(T, ops, ref, tile_accumulate, tile_accumulate_plain,
         rel_v = float(((v - vp).abs() / vp.abs()).max())
         err_g = float(((g - gp).abs() / gp.abs().max()).max())
         slot_ok = all(torch.equal(blur_stats_streaming(
-            ch[i:i + 1], taps, rb=BLUR_RB)[0], out[i])
-            for i in range(B_WINDOWS))
+            ch[i:i + 1], taps)[0], out[i]) for i in range(B_WINDOWS))
+        geom = blur_geometry(blur_launch_config(Hs, Ws, st.blur_taps))
         print(f"[kernels] blur_stats_streaming s={st.scale} k={st.blur_taps} "
-              f"grid {Hs}x{Ws} B={B_WINDOWS}: sums err {rel:.3e} of the "
+              f"grid {Hs}x{Ws} B={B_WINDOWS} ({geom}): sums err {rel:.3e} of "
+              f"the "
               f"largest, var rel err {rel_v:.3e}, grad err {err_g:.3e}, "
               f"rerun bitwise {bool(torch.equal(out, again))}, B=1 == slot "
               f"bitwise {slot_ok}")
@@ -238,7 +261,7 @@ def check_window_kernels(T, ops, ref, tile_accumulate, tile_accumulate_plain,
               "blur_stats_streaming rerun is not bitwise equal")
         check(slot_ok, "blur_stats_streaming B=1 differs from its slot")
         rows.append(dict(stage=st, weights=weights, zero_cap=zero_cap,
-                         packs=packs, channels=ch, taps=taps,
+                         packs=packs, channels=ch, taps=taps, geometry=geom,
                          spilled_share=acc.spilled.sum().item()
                          / max(n_taps, 1)))
     return rows, err_tile, err_blur
@@ -318,26 +341,34 @@ def time_window_kernels(T, ops, tile_accumulate, tile_accumulate_plain,
               f"{100 * bound / kern:.2f}% of bound reached, on {card}")
 
         ch, taps, k = r["channels"], r["taps"], st.blur_taps
-        kern = cuda_ms(lambda: blur_stats_streaming(ch, taps, rb=BLUR_RB),
-                       reps=50)
+        one = ch[:1]
+        kern = cuda_ms(lambda: blur_stats_streaming(ch, taps), reps=50)
+        kern_1 = cuda_ms(lambda: blur_stats_streaming(one, taps), reps=50)
         plain = cuda_ms(lambda: blur_stats_streaming_plain(ch, taps),
                         reps=10, warmup=2)
         P = Hs * Ws
-        nbytes = B_WINDOWS * (4 * P * 4 + 32) + k * 4
-        flops = B_WINDOWS * P * (16 * k + 12)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS * 1e3
-        bound = max(t_bytes, t_ops)
-        row = dict(scale=st.scale, k=k, rb=BLUR_RB, ms=kern, plain_ms=plain,
-                   library_ms=None, bound_ms=bound,
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   bytes=nbytes, flops=flops)
+        row = dict(scale=st.scale, k=k, geometry=r["geometry"], ms=kern,
+                   plain_ms=plain, library_ms=None, ms_b1=kern_1)
+        for B, tag in ((B_WINDOWS, ""), (1, "_b1")):
+            nbytes = B * (4 * P * 4 + 32) + k * 4
+            flops = B * P * (16 * k + 12)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / F32_FLOPS * 1e3
+            row.update({f"bound_ms{tag}": max(t_bytes, t_ops),
+                        f"bound_by{tag}": "bytes" if t_bytes >= t_ops
+                        else "operations", f"bytes{tag}": nbytes,
+                        f"flops{tag}": flops})
         blur_rows.append(row)
+        for B, tag in ((B_WINDOWS, ""), (1, "_b1")):
+            t, bound = row[f"ms{tag}"], row[f"bound_ms{tag}"]
+            print(f"[timing] blur_stats_streaming s={st.scale} k={k} B={B}: "
+                  f"kernel {t * 1e3:.1f} us/launch, bound "
+                  f"{bound * 1e3:.2f} us ({row[f'bound_by{tag}']}: "
+                  f"{row[f'bytes{tag}']} B, {row[f'flops{tag}']} flop) = "
+                  f"{100 * bound / t:.2f}% of bound reached, on {card}")
         print(f"[timing] blur_stats_streaming s={st.scale} k={k} "
-              f"B={B_WINDOWS}: kernel {kern * 1e3:.1f} us/launch, plain "
-              f"{plain * 1e3:.1f} us, bound {bound * 1e3:.2f} us "
-              f"({row['bound_by']}: {nbytes} B, {flops} flop) = "
-              f"{100 * bound / kern:.2f}% of bound reached, on {card}")
+              f"B={B_WINDOWS}: plain {plain * 1e3:.1f} us; geometry "
+              f"{r['geometry']}")
     return tile_rows, blur_rows
 
 
@@ -356,6 +387,7 @@ def main() -> int:
                                      ops, tile_accumulate,
                                      tile_accumulate_plain)
     from repro_torch.kernels import ref as kernel_ref
+    from repro_torch.kernels.blur_stats import launch_config as blur_launch
     counted = (megakernel.megakernel_stats, tile_accumulate,
                blur_stats_streaming)
 
@@ -375,14 +407,25 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(f"[build] nvcc for sm_90a: {time.perf_counter() - t0:.1f} s")
+    cfg = cmax_camel.CONFIG
+    cam = cfg.camera
     for kname, log in _build.BUILD_LOG.items():
+        if kname == "blur_stats":
+            continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {kname}: {line.strip()}")
+    # the blur kernel is built for every odd k: its report is printed once
+    # for each k the stages launch
+    blur_entries = ptxas_entries(_build.BUILD_LOG.get("blur_stats", ""))
+    for st in cfg.stages:
+        tag = f"blur_stats_kernelILi{st.blur_taps}EE"
+        for entry, lines in blur_entries.items():
+            if tag in entry:
+                print(f"[build] blur_stats: blur_stats_kernel<{st.blur_taps}>"
+                      f" (s={st.scale}): {'; '.join(lines)}")
 
-    cfg = cmax_camel.CONFIG
     check(cfg.engine == "cuda_batched", "CONFIG does not use cuda_batched")
-    cam = cfg.camera
     specs = [dataclasses.replace(events.POSTER, n_windows=WINDOWS_PER_STREAM,
                                  events_per_window=N_EVENTS,
                                  n_features=N_FEATURES, jerk_prob=0.0,
@@ -438,7 +481,8 @@ def main() -> int:
         stage_inputs.append((st, bins, fir, kw, live))
     window_rows, err_tile, err_blur = check_window_kernels(
         T, ops, kernel_ref, tile_accumulate, tile_accumulate_plain,
-        blur_stats_streaming, blur_stats_streaming_plain, cfg, first, om_b)
+        blur_stats_streaming, blur_stats_streaming_plain, blur_launch, cfg,
+        first, om_b)
 
     # ---- 3. the main path ----
     for fn in counted:
@@ -648,7 +692,8 @@ def main() -> int:
         passes_per_stage=window_stage_passes, max_abs_err=err_blur,
         ms=blur_full["ms"], plain_ms=blur_full["plain_ms"],
         bound_ms=blur_full["bound_ms"], bound_by=blur_full["bound_by"],
-        library_ms=None, at=f"{at}, rb={BLUR_RB}", per_stage=blur_rows)]
+        library_ms=None, at=f"{at}, {blur_full['geometry']}",
+        per_stage=blur_rows)]
     for kern in kernels:
         check(kern["launches"] > 0,
               f"{kern['name']} was launched no time on its path")

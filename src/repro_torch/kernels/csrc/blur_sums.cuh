@@ -1,12 +1,12 @@
 // Separable Gaussian blur of four channel planes held in shared memory, and
 // the eight Eq. 12 sums of the blurred pixels, for Hopper (sm_90a).
 //
-// Shared by megakernel.cu (which votes the planes itself) and blur_stats.cu
-// (which loads them from a channel stack). A block owns a band of output
-// rows; its planes hold those rows plus the k-1 halo rows around them, so
-// no state passes from block to block and the per-block partial sums are
-// reduced afterwards in block order (part_sums_kernel). Every sum has a
-// fixed order: the results are bitwise equal run to run.
+// Used by megakernel.cu's slab kernel (blur_stats.cu takes only the
+// constants). A block owns a band of output rows; its planes hold those
+// rows plus the k-1 halo rows around them, so no state passes from block
+// to block and the per-block partial sums are reduced afterwards in block
+// order (part_sums_kernel). Every sum has a fixed order: the results are
+// bitwise equal run to run.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,24 +15,6 @@ namespace cmax {
 
 constexpr int kMaxTaps = 15;
 constexpr int kStats = 8;   // [S1, S2, Gx, Gy, Gz, Tx, Ty, Tz]
-
-// dst[q] = the k-tap FIR along the row (W floats) that holds src[q], with
-// zero beyond [0, W); q runs over n floats (whole rows).
-template <int NT>
-__device__ __forceinline__ void fir_rows(const float* src, float* dst, int n,
-                                         int W, int k, const float* taps) {
-  const int half = k / 2;
-  for (int q = threadIdx.x; q < n; q += NT) {
-    const int c = q % W;
-    const float* row = src + (q - c);
-    float s = 0.f;
-    for (int j = 0; j < k; ++j) {
-      const int cc = c + j - half;
-      if (cc >= 0 && cc < W) s = s + taps[j] * row[cc];
-    }
-    dst[q] = s;
-  }
-}
 
 // The vertical k-tap FIR of four horizontally blurred planes (`plane`
 // floats apart; output row r reads plane rows r .. r+k-1) over `out_rows`

@@ -404,3 +404,107 @@ def test_launch_configs_match_the_sources(cuda):
     for p_tile in (1, 1000, 1024, 2048, 4096):
         assert tile.tile_accumulate_smem_bytes(p_tile) <= \
             megakernel.SMEM_LIMIT
+
+
+# ----------------------------------------------------------------------
+# the hard cases of the streaming blur kernel
+# ----------------------------------------------------------------------
+
+# (name, B, H, W, k): ragged shapes (H no multiple of the band, W no
+# multiple of the strip or of 4), a grid narrower than one strip, the
+# shortest and longest blurs, one window alone, and unit impulses at the
+# corners and on the strip and band seams
+BLUR_CASES = [("ragged_45x61", 8, 45, 61, 9), ("ragged_45x62", 8, 45, 62, 5),
+              ("narrow_20x13", 8, 20, 13, 5), ("k1", 8, 45, 60, 1),
+              ("k15", 8, 45, 62, 15), ("k15_full", 8, 180, 240, 15),
+              ("b1", 1, 90, 120, 5), ("impulses", 8, 90, 130, 9),
+              ("impulses_k3", 8, 45, 61, 3)]
+
+
+def _blur_case(name, B, H, W, k, device):
+    """(channels, taps) of one hard case, drawn from a seed."""
+    from repro_torch.kernels.blur_stats import launch_config
+    rng = np.random.default_rng([ord(c) for c in name])
+    if name.startswith("impulses"):
+        cfg = launch_config(H, W, k)
+        r, c = cfg.band_rows, min(64, W - 1)
+        spots = [(0, 0), (0, W - 1), (H - 1, 0), (H - 1, W - 1),
+                 (r - 1, c - 1), (r, c), (r - 1, c), (r, c - 1)]
+        ch = np.zeros((B, 4, H, W), np.float32)
+        for b in range(B):
+            for i, (y, x) in enumerate(spots):
+                ch[b, (b + i) % 4, y, x] = 1.0
+            ch[(b, 0) + spots[b % len(spots)]] = 1.0   # I always has one
+    else:
+        ch = rng.normal(size=(B, 4, H, W)).astype(np.float32)
+    sigma = max(k / 6.0, 0.5)
+    return (torch.tensor(ch, device=device),
+            T.gaussian_taps(k, sigma, device=device))
+
+
+def _hold_blur_to_plain(out, plain, P):
+    rel = ((out - plain).abs() / plain.abs().amax(dim=-1, keepdim=True))
+    assert float(rel.max()) <= 1e-3
+    v, g = T.stats_to_objective(out, P)
+    vp, gp = T.stats_to_objective(plain, P)
+    torch.testing.assert_close(v, vp, rtol=1e-4, atol=0)
+    s = gp.abs().max()
+    torch.testing.assert_close(g / s, gp / s, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", BLUR_CASES, ids=[c[0] for c in BLUR_CASES])
+def test_blur_stats_hard_cases(cuda, case):
+    """Against the plain version at the kernel's bars, bitwise on a rerun
+    and, for each window alone, bitwise equal to its slot of the batch."""
+    name, B, H, W, k = case
+    ch, taps = _blur_case(name, B, H, W, k, cuda)
+    before = blur_stats_streaming.launches
+    out = blur_stats_streaming(ch, taps)
+    again = blur_stats_streaming(ch, taps)
+    plain = blur_stats_streaming_plain(ch, taps)
+    torch.cuda.synchronize()
+    assert blur_stats_streaming.launches == before + 2
+    assert out.shape == (B, 8) and bool(torch.isfinite(out).all())
+    _hold_blur_to_plain(out, plain, H * W)
+    assert torch.equal(out, again)
+    for i in range(B):
+        assert torch.equal(blur_stats_streaming(ch[i:i + 1], taps)[0],
+                           out[i])
+
+
+def test_blur_stats_unaligned_stack_takes_the_same_bits(cuda):
+    """A stack that starts 4 bytes past a 16-byte boundary is staged with
+    4-byte copies; the staged rows, and so the bits, are the same."""
+    ch, taps = _blur_case("aligned", 2, 90, 120, 5, cuda)
+    flat = torch.empty(ch.numel() + 1, device=cuda)
+    flat[1:] = ch.reshape(-1)
+    shifted = flat[1:].view_as(ch)
+    assert shifted.data_ptr() % 16 == 4 and shifted.is_contiguous()
+    assert torch.equal(blur_stats_streaming(shifted, taps),
+                       blur_stats_streaming(ch, taps))
+
+
+def test_blur_stats_on_two_streams_keeps_its_bits(cuda):
+    """Calls on two streams at once (each stream has its own tickets for
+    the kernel's last-block sum) give the bits of one call alone."""
+    ch, taps = _blur_case("streams", 8, 180, 240, 9, cuda)
+    alone = blur_stats_streaming(ch, taps)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(20):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(blur_stats_streaming(ch, taps))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, alone) for o in outs)
+
+
+def test_blur_launch_config_matches_the_source(cuda):
+    """The launcher takes launch_config's geometry at every k it is built
+    for (it refuses a halo, segment or shared memory it cannot use)."""
+    ch = torch.ones((1, 4, 45, 61), device=cuda)
+    for k in range(1, 16, 2):
+        out = blur_stats_streaming(ch, T.gaussian_taps(k, 1.0, device=cuda))
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all())

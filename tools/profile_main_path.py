@@ -11,8 +11,9 @@ device's idle share, the lockstep passes, the kernels that took the most
 device time (in total and per lockstep pass), and the operators whose own
 launches took the most. Then, per stage, it profiles `--reps` engine passes
 of the same batch at the IMU warm start (prologue and kernels, as the
-pipeline calls them) and prints each kernel's device time per pass. Needs a
-CUDA card; imports no JAX.
+pipeline calls them) and prints each kernel's device time per pass (the top rows, and
+the port's own kernels wherever they rank). Needs a CUDA card; imports no
+JAX.
 """
 from __future__ import annotations
 
@@ -34,6 +35,12 @@ def _self_device_us(evt) -> float:
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
     return 0.0
+
+
+#: the port's own kernels (csrc/): printed at every stage, in the top rows
+#: or not
+OWN_KERNELS = ("blur_stats_kernel", "tile_accumulate", "pack_events_kernel",
+               "vote_kernel", "slab_stats_kernel", "part_sums_kernel")
 
 
 def _on_device(evt) -> bool:
@@ -138,7 +145,10 @@ def stage_breakdown(T, cfg, st, wins, om0, args, card) -> None:
     busy = sum(_self_device_us(e) for e in rows) / args.reps
     print(f"[stage] s={st.scale} k={st.blur_taps} B={wins.x.shape[0]} "
           f"{cfg.engine} on {card}: device {busy:.1f} us per engine pass")
-    for e in sorted(rows, key=_self_device_us, reverse=True)[:args.top]:
+    ranked = sorted(rows, key=_self_device_us, reverse=True)
+    shown = ranked[:args.top] + [e for e in ranked[args.top:] if any(
+        name in e.key for name in OWN_KERNELS)]
+    for e in shown:
         print(f"[stage]   {_self_device_us(e) / args.reps:9.1f} us/pass "
               f"{e.count // args.reps:4d} launches/pass  {e.key[:80]}")
 
