@@ -36,7 +36,20 @@ paper's size, and times the kernels. Phases:
                 engine_capacity=4096: each new kernel's launches equal the
                 engine passes taken, RMSE vs omega_true < 0.5 rad/s, the
                 first windows agree with the reference engine as in 3;
-  5. timing     each kernel's time per launch (CUDA events; the blur kernel
+  5. serve      the serving layer: 8 streams x 4 ragged windows of 20,000
+                to 40,000 events (the POSTER windows of 3, each cut by
+                `ragged_lengths`) served by AsyncBatchedEstimationService
+                (pow2 classes 32,768 and 65,536, max_batch 8, 2 batches in
+                flight, the threaded dispatch executor) under cuda_batched:
+                every response ok and bitwise equal to the workload's
+                batch-1 chain, RMSE vs omega_true < 0.5 rad/s, megakernel
+                launches equal to the served batches' lockstep passes, no
+                per-window kernel launched, a second batch submitted while
+                the first still ran; the synchronous service gives the same
+                bits; then 2 streams x 2 windows under engine="cuda", whose
+                two kernels' launches equal its passes. Windows/s, latency,
+                batches, classes built and padding are printed;
+  6. timing     each kernel's time per launch (CUDA events; the blur kernel
                 at B=8 and at B=1, the estimate_sequence path), its prologue's,
                 its plain version's and, where one PyTorch call computes the
                 same function, that call's, against the bound set by the
@@ -74,6 +87,7 @@ B_WINDOWS = 8
 N_EVENTS = 40000
 N_FEATURES = 2500
 STREAMS, WINDOWS_PER_STREAM = 8, 4
+SERVE_EVENTS = (20000, 40000)  # ragged window lengths of the [serve] phase
 CAPACITY = 4096               # the "cuda" engine's default per-tile budget
 TILE = (8, 128)
 P_TILE = TILE[0] * TILE[1]
@@ -372,6 +386,185 @@ def time_window_kernels(T, ops, tile_accumulate, tile_accumulate_plain,
     return tile_rows, blur_rows
 
 
+def serve_chain(wl, wins, omega_hint):
+    """The workload's own batch-1 chain over one stream's windows (the
+    reference of the serving contracts): omega of each window, bitwise."""
+    state = np.asarray(omega_hint, np.float32)
+    out = []
+    for w in wins:
+        b = wl.bucket_of(w)
+        data, sb, _ = wl.make_batch([w], [state], b, 1)
+        res = wl.executable(b, 1)(data, sb)
+        _, state, _, _ = wl.harvest(res, False)(0)
+        out.append(state)
+    return out
+
+
+def serve_phase(cfg, seqs, counted, dev, card):
+    """Phase 5: the serving layer on the card. Returns the launches of each
+    kernel in its drain and the printed numbers."""
+    from repro_torch.core.pipeline import lockstep_passes
+    from repro_torch.data import events
+    from repro_torch.launch.serve import (AsyncBatchedEstimationService,
+                                          AsyncDispatchExecutor,
+                                          BatchedEstimationService,
+                                          MonotonicClock)
+    from repro_torch.serving import CmaxWorkload
+
+    class PassCounting(CmaxWorkload):
+        """Adds up the lockstep engine passes of every batch it harvests."""
+        passes = 0
+
+        def harvest(self, result, track_gain):
+            self.passes += lockstep_passes(result)
+            return super().harvest(result, track_gain)
+
+    class OverlapExecutor(AsyncDispatchExecutor):
+        """The threaded executor, noting at each submit how many batches
+        it was handed have not finished on the device yet."""
+
+        def __init__(self):
+            super().__init__()
+            self.unfinished, self.peak = [], 0
+
+        def submit(self, *args):
+            h = super().submit(*args)
+            self.unfinished = [u for u in self.unfinished
+                               if not self.done(u)] + [h]
+            self.peak = max(self.peak, len(self.unfinished))
+            return h
+
+    policy = events.pow2_policy(min_bucket=16384)
+    lo, hi = SERVE_EVENTS
+    check(policy.classes(lo, hi) == (32768, 65536),
+          f"classes {policy.classes(lo, hi)}")
+    streams = {}
+    for s, (wins, om_true, _) in enumerate(seqs):
+        lens = events.ragged_lengths(WINDOWS_PER_STREAM, lo, hi, seed=s)
+        streams[f"s{s}"] = (events.ragged_from_sequence(wins, lens),
+                            om_true.cpu().numpy())
+    n_win = sum(len(w) for w, _ in streams.values())
+
+    def submit_all(svc):
+        for sid, (wins, om_true) in streams.items():
+            for k, w in enumerate(wins):
+                svc.submit(sid, w, omega_hint=om_true[0] if k == 0 else None)
+
+    def drain(svc):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs = svc.drain()
+        torch.cuda.synchronize()
+        return rs, time.perf_counter() - t0
+
+    wl = PassCounting(cfg, policy=policy, device=dev)
+    ex = OverlapExecutor()
+    svc = AsyncBatchedEstimationService(workload=wl, max_batch=8,
+                                        max_in_flight=2,
+                                        clock=MonotonicClock(), executor=ex)
+    submit_all(svc)
+    for fn in counted:
+        fn.launches = 0
+    rs, wall = drain(svc)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    served_passes = wl.passes
+    ex.close()
+    check(len(rs) == n_win and all(r.status == "ok" for r in rs),
+          f"{len(rs)} responses, statuses {sorted({r.status for r in rs})}")
+    by = {(r.stream_id, r.seq): r for r in rs}
+    for sid, (wins, om_true) in streams.items():
+        for k, om in enumerate(serve_chain(wl, wins, om_true[0])):
+            check(np.array_equal(by[(sid, k)].omega, om),
+                  f"served omega of {sid}/{k} differs from its batch-1 "
+                  f"chain: {by[(sid, k)].omega} vs {om}")
+    est = np.stack([[by[(sid, k)].omega for k in range(WINDOWS_PER_STREAM)]
+                    for sid in streams])
+    truth = np.stack([om_true for _, om_true in streams.values()])
+    err = rmse(est, truth)
+    lats = sorted(r.latency for r in rs)
+    p50 = lats[len(lats) // 2]
+    p99 = lats[min(len(lats) - 1, int(0.99 * len(lats)))]
+    lengths = [w.n for wins, _ in streams.values() for w in wins]
+    print(f"[serve] async: {n_win} windows ({STREAMS} streams x "
+          f"{WINDOWS_PER_STREAM}, {min(lengths)}-{max(lengths)} events, "
+          f"all submitted at once), {cfg.camera.width}x{cfg.camera.height}, "
+          f"engine {cfg.engine}, classes "
+          f"{policy.classes(lo, hi)}: {wall:.3f} s, {n_win / wall:.2f} "
+          f"windows/s; latency p50 {1e3 * p50:.1f} ms, p99 {1e3 * p99:.1f} "
+          f"ms; batches {svc.stats['batches']}, compiles (classes built) "
+          f"{svc.stats['compiles']}, padded_slot_frac "
+          f"{svc.padded_slot_frac:.3f}; most batches unfinished at a submit "
+          f"{ex.peak}; on {card}")
+    print(f"[serve] async: RMSE vs omega_true {err:.4f} rad/s; every omega "
+          f"bitwise equal to its batch-1 chain; launches {launches}, "
+          f"lockstep passes of the served batches {served_passes}")
+    check(err < 0.5, f"served RMSE vs omega_true {err} >= 0.5 rad/s")
+    check(launches["megakernel_stats"] == served_passes > 0,
+          f"megakernel launches {launches['megakernel_stats']} != served "
+          f"passes {served_passes}")
+    check(launches["tile_accumulate"] == launches["blur_stats_streaming"]
+          == 0, "the cuda_batched drain launched a per-window kernel")
+    check(ex.peak >= 2, f"at most {ex.peak} batch unfinished at a submit: "
+          "the executor did not overlap")
+
+    sync = BatchedEstimationService(workload=wl, max_batch=8)
+    submit_all(sync)
+    wl.passes = 0
+    rs_sync, wall_sync = drain(sync)
+    sync_passes = wl.passes
+    for r in rs_sync:
+        check(np.array_equal(r.omega, by[(r.stream_id, r.seq)].omega),
+              f"sync service omega of {r.stream_id}/{r.seq} differs")
+    print(f"[serve] sync: {n_win} windows in {wall_sync:.3f} s, "
+          f"{n_win / wall_sync:.2f} windows/s, batches "
+          f"{sync.stats['batches']}, lockstep passes {sync_passes}; every "
+          f"omega bitwise equal to the async service's; on {card}")
+    print(f"[serve] ms per lockstep pass: async {1e3 * wall / served_passes:.3f}"
+          f", sync {1e3 * wall_sync / sync_passes:.3f}")
+
+    wcfg = dataclasses.replace(cfg, engine="cuda", engine_capacity=CAPACITY)
+    wwl = PassCounting(wcfg, policy=policy, device=dev)
+    wsvc = AsyncBatchedEstimationService(workload=wwl, max_batch=8,
+                                         max_in_flight=2)
+    few = {sid: (wins[:2], om_true) for sid, (wins, om_true)
+           in list(streams.items())[:2]}
+    for sid, (wins, om_true) in few.items():
+        for k, w in enumerate(wins):
+            wsvc.submit(sid, w, omega_hint=om_true[0] if k == 0 else None)
+    for fn in counted:
+        fn.launches = 0
+    wrs, wwall = drain(wsvc)
+    wlaunches = {fn.__name__: fn.launches for fn in counted}
+    wpasses = wwl.passes
+    wsvc.executor.close()
+    check(len(wrs) == 4 and all(r.status == "ok" for r in wrs),
+          "the cuda-engine drain did not serve every window")
+    wby = {(r.stream_id, r.seq): r for r in wrs}
+    for sid, (wins, om_true) in few.items():
+        for k, om in enumerate(serve_chain(wwl, wins, om_true[0])):
+            check(np.array_equal(wby[(sid, k)].omega, om),
+                  f"cuda-engine omega of {sid}/{k} differs from its chain")
+    print(f"[serve] engine cuda: 4 windows (2 streams x 2) in {wwall:.3f} s, "
+          f"{4 / wwall:.2f} windows/s, batches {wsvc.stats['batches']}; "
+          f"launches {wlaunches}, lockstep passes {wpasses}; every omega "
+          f"bitwise equal to its batch-1 chain; on {card}")
+    check(wlaunches["tile_accumulate"] == wlaunches["blur_stats_streaming"]
+          == wpasses > 0, f"cuda-engine launches {wlaunches} != passes "
+          f"{wpasses}")
+    check(wlaunches["megakernel_stats"] == 0,
+          "the cuda drain launched the batched kernel")
+    return dict(
+        launches={"megakernel_stats": launches["megakernel_stats"],
+                  "tile_accumulate": wlaunches["tile_accumulate"],
+                  "blur_stats_streaming": wlaunches["blur_stats_streaming"]},
+        windows_per_s=n_win / wall, sync_windows_per_s=n_win / wall_sync,
+        passes=served_passes, sync_passes=sync_passes,
+        p50_ms=1e3 * p50, p99_ms=1e3 * p99, batches=svc.stats["batches"],
+        compiles=svc.stats["compiles"],
+        padded_slot_frac=svc.padded_slot_frac, peak_unfinished=ex.peak,
+        rmse=err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -624,7 +817,10 @@ def main() -> int:
     check(worst_v_w <= 1e-3,
           f"cuda v_final differs from reference by {worst_v_w}")
 
-    # ---- 5. timing ----
+    # ---- 5. serving ----
+    served = serve_phase(cfg, seqs, counted, dev, card)
+
+    # ---- 6. timing ----
     per_stage = []
     for st, bins, fir, kw, live in stage_inputs:
         P = kw["H"] * kw["W"]
@@ -694,6 +890,8 @@ def main() -> int:
         bound_ms=blur_full["bound_ms"], bound_by=blur_full["bound_by"],
         library_ms=None, at=f"{at}, {blur_full['geometry']}",
         per_stage=blur_rows)]
+    for kern in kernels:
+        kern["serve_launches"] = served["launches"][kern["name"]]
     for kern in kernels:
         check(kern["launches"] > 0,
               f"{kern['name']} was launched no time on its path")

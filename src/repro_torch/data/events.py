@@ -13,11 +13,15 @@ same `SequenceSpec` and seed give bit-identical windows in both packages.
   * an "IMU" reference = omega_true + IMU-grade noise.
 
 Two named presets mirror the paper's sequences: `POSTER` and `BOXES`.
+
+The second half is the serving layer's bucketing: length-class policies,
+padding and leader-replicated batch fill, and the ragged cuts a streaming
+source produces.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -134,6 +138,85 @@ def window_slice(windows: EventWindow, k: int) -> EventWindow:
     return windows.map(lambda a: a[k])
 
 
+# ---------------------------------------------------------------------------
+# Bucketing: variable-length windows for the serving path. Each raw event
+# count is padded up to one of a small set of length classes, so the number
+# of executable classes a service holds is bounded by the policy, not by the
+# workload. Padded slots carry valid=False and contribute nothing downstream
+# (the warp marks them out of range, the sort dumps them in the overflow
+# bucket, their IWE weights are zero).
+# ---------------------------------------------------------------------------
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketPolicy:
+    """Maps a raw event count to a padded length class.
+
+    ``sizes=()`` selects power-of-two buckets in [min_bucket, max_bucket]
+    (geometric classes: worst-case padding < 2x, log2(max/min)+1 classes).
+    A non-empty ``sizes`` tuple gives explicit classes; a single entry pads
+    everything to one length (one class, maximal padding), the "no
+    bucketing" baseline.
+    """
+
+    name: str = "pow2"
+    sizes: Tuple[int, ...] = ()
+    min_bucket: int = 1024
+    max_bucket: int = 1 << 20
+
+    def bucket_of(self, n: int) -> int:
+        """Smallest length class holding an n-event window."""
+        if n <= 0:
+            raise ValueError(f"window must have at least 1 event, got {n}")
+        if self.sizes:
+            for s in sorted(self.sizes):
+                if n <= s:
+                    return int(s)
+            raise ValueError(
+                f"window of {n} events exceeds largest bucket "
+                f"{max(self.sizes)} of policy {self.name!r}")
+        if n > self.max_bucket:
+            raise ValueError(
+                f"window of {n} events exceeds max_bucket={self.max_bucket}")
+        return min(self.max_bucket, max(self.min_bucket, _next_pow2(n)))
+
+    def classes(self, n_min: int, n_max: int) -> Tuple[int, ...]:
+        """Every length class a workload in [n_min, n_max] can occupy: the
+        executable classes a service must hold warm for that range."""
+        if not (1 <= n_min <= n_max):
+            raise ValueError(f"need 1 <= n_min <= n_max, got {n_min}, "
+                             f"{n_max}")
+        lo, hi = self.bucket_of(n_min), self.bucket_of(n_max)
+        if self.sizes:
+            return tuple(s for s in sorted(self.sizes) if lo <= s <= hi)
+        out = []
+        c = lo
+        while c <= hi:
+            out.append(c)
+            c *= 2
+        return tuple(out)
+
+
+def pow2_policy(min_bucket: int = 1024,
+                max_bucket: int = 1 << 20) -> BucketPolicy:
+    return BucketPolicy(name="pow2", min_bucket=min_bucket,
+                        max_bucket=max_bucket)
+
+
+def single_policy(size: int) -> BucketPolicy:
+    """Everything pads to one fixed length — the unbucketed baseline."""
+    return BucketPolicy(name=f"single{size}", sizes=(int(size),))
+
+
+def fixed_policy(sizes: Sequence[int]) -> BucketPolicy:
+    sz = tuple(sorted(int(s) for s in sizes))
+    return BucketPolicy(name="fixed" + "-".join(map(str, sz)), sizes=sz)
+
+
 def pad_window(ev: EventWindow, n_pad: int) -> EventWindow:
     """Pad a single (N,) window to (n_pad,) with valid=False slots (zeros
     elsewhere; padding is never read)."""
@@ -159,3 +242,76 @@ def batch_windows(wins: Sequence[EventWindow],
     return EventWindow(x=stack(lambda w: w.x), y=stack(lambda w: w.y),
                        t=stack(lambda w: w.t), p=stack(lambda w: w.p),
                        valid=stack(lambda w: w.valid))
+
+
+def fill_batch(wins: Sequence[EventWindow], n_pad: int, batch_b: int
+               ) -> Tuple[EventWindow, int]:
+    """Admit a partial batch into a full (batch_b, n_pad) batch class, on
+    the device of its windows.
+
+    When fewer than `batch_b` windows are admissible the remaining slots
+    replicate the batch leader (finite, well-formed data; the caller
+    computes and discards their results). Returns (padded batch, n_fill).
+    """
+    if not wins:
+        raise ValueError("fill_batch needs at least one window")
+    n_fill = batch_b - len(wins)
+    if n_fill < 0:
+        raise ValueError(
+            f"{len(wins)} windows exceed batch class {batch_b}")
+    ev = batch_windows(list(wins) + [wins[0]] * n_fill, n_pad)
+    return ev, n_fill
+
+
+def bucketize(wins: Sequence[EventWindow], policy: BucketPolicy
+              ) -> Dict[int, List[int]]:
+    """Group window indices by length class: {bucket_n: [indices]}.
+
+    Bucketing is by array length (`ev.n`), the quantity that sets the
+    executable class, not by the number of valid events."""
+    out: Dict[int, List[int]] = {}
+    for i, w in enumerate(wins):
+        out.setdefault(policy.bucket_of(w.n), []).append(i)
+    return {k: out[k] for k in sorted(out)}
+
+
+def padding_overhead(wins: Sequence[EventWindow],
+                     policy: BucketPolicy) -> float:
+    """Fraction of padded event slots the policy adds: pad / (raw + pad)."""
+    raw = sum(w.n for w in wins)
+    total = sum(policy.bucket_of(w.n) for w in wins)
+    return float(total - raw) / float(max(total, 1))
+
+
+def ragged_from_sequence(windows: EventWindow, lengths: Sequence[int]
+                         ) -> List[EventWindow]:
+    """Cut a dense (K, N) sequence into variable-length windows.
+
+    Events within a window are time-ordered, so the first L_k slots are a
+    causally contiguous prefix: the shape a streaming source produces when
+    it closes windows early (by event count, not time)."""
+    K = windows.x.shape[0]
+    if len(lengths) != K:
+        raise ValueError(f"got {len(lengths)} lengths for {K} windows")
+    out = []
+    for k, L in enumerate(lengths):
+        w = window_slice(windows, k)
+        L = int(L)
+        if not (0 < L <= w.n):
+            raise ValueError(f"length {L} out of range (1, {w.n}] at {k}")
+        out.append(w.map(lambda a: a[:L]))
+    return out
+
+
+def ragged_lengths(n_windows: int, n_min: int, n_max: int,
+                   seed: int = 0) -> np.ndarray:
+    """Heavy-tailed window lengths (log-uniform), as DVS bursts are. The
+    reference's numpy draw, so both packages cut the same windows."""
+    if not (1 <= n_min <= n_max):
+        raise ValueError(
+            f"need 1 <= n_min <= n_max, got n_min={n_min} n_max={n_max}")
+    rng = np.random.default_rng(seed)
+    lo, hi = np.log(n_min), np.log(n_max)
+    raw = np.exp(rng.uniform(lo, hi, n_windows)).astype(np.int64)
+    # int truncation can land one below n_min; enforce the contract
+    return np.clip(raw, n_min, n_max)

@@ -6,7 +6,10 @@ Each source under `csrc/` is compiled at first use into
 carries a hash of the source, the shared headers (`csrc/*.cuh`) and the
 flags, so an edited source or header is never served from a stale library.
 `build_all()` starts one `nvcc` per source, all at once, and waits for them
-together.
+together. `load` builds and loads under one lock, so threads that first use
+a kernel at the same time run one build; builds that do race (two processes,
+or `build_all` beside `load`) write separate temporary files and rename the
+finished one into place.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Dict, List
 
@@ -32,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 #: kernel name -> the compiler's report (`-Xptxas -v`: registers, shared
 #: memory, spills) from the build in this process
 BUILD_LOG: Dict[str, str] = {}
@@ -100,8 +105,12 @@ def build_all(names: List[str] = None) -> None:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, building it at first use."""
     lib = _LIBS.get(name)
-    if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        _LIBS[name] = lib
-    return lib
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build_all([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            _LIBS[name] = lib
+        return lib

@@ -10,6 +10,7 @@ file imports no JAX (the card's machine has none); run it there with
     PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -508,3 +509,136 @@ def test_blur_launch_config_matches_the_source(cuda):
         out = blur_stats_streaming(ch, T.gaussian_taps(k, 1.0, device=cuda))
         torch.cuda.synchronize()
         assert bool(torch.isfinite(out).all())
+
+
+# ----------------------------------------------------------------------
+# serving: the threaded dispatch executor and drains on the card
+# ----------------------------------------------------------------------
+
+
+def _serve_streams(device, n_streams=3, n_windows=2, n_max=8192):
+    """Ragged POSTER streams on `device`."""
+    from repro_torch.data.events import ragged_from_sequence, ragged_lengths
+    out = {}
+    for s in range(n_streams):
+        spec = dataclasses.replace(events.POSTER, n_windows=n_windows,
+                                   events_per_window=n_max, jerk_prob=0.0,
+                                   seed=events.POSTER.seed + s)
+        wins, _, om = events.make_sequence(spec, device=device)
+        lens = ragged_lengths(n_windows, n_max // 2, n_max, seed=s)
+        out[f"s{s}"] = (ragged_from_sequence(wins, lens), om[0])
+    return out
+
+
+def _short_cfg(engine):
+    return dataclasses.replace(T.CmaxConfig(engine=engine), stages=tuple(
+        dataclasses.replace(s, max_iters=6) for s in T.CmaxConfig().stages))
+
+
+def test_dispatch_executor_overlaps_and_matches_inline(cuda):
+    """Two batches in flight on the worker's stream: neither is done while
+    the device still sleeps ahead of them, both are after `wait`, and
+    their results have the bits of the inline executor's."""
+    from repro_torch.launch.serve import AsyncDispatchExecutor, InlineExecutor
+    from repro_torch.serving import CmaxWorkload
+    cfg = _short_cfg("cuda_batched")
+    wl = CmaxWorkload(cfg, device=cuda)
+    streams = _serve_streams(cuda)
+    batches = []
+    for take in (("s0", "s1"), ("s2",)):
+        wins = [streams[s][0][0] for s in take]
+        states = [streams[s][1].cpu().numpy() for s in take]
+        batches.append(wl.make_batch(wins, states, 8192, 2)[:2])
+    fn = wl.executable(8192, 2)
+
+    def slow(w, o):
+        torch.cuda._sleep(int(0.3 * 2e9))       # ~0.3 s on the device
+        return fn(w, o)
+
+    ex = AsyncDispatchExecutor()
+    handles = [ex.submit(slow, w, o, 8192, 2) for w, o in batches]
+    assert not any(ex.done(h) for h in handles)
+    got = [ex.wait(h) for h in handles]
+    assert all(ex.done(h) for h in handles)
+    ex.close()
+    inline = InlineExecutor()
+    for (w, o), res in zip(batches, got):
+        ref = inline.wait(inline.submit(fn, w, o, 8192, 2))
+        assert torch.equal(res.omega, ref.omega)
+        for st_a, st_b in zip(res.stages, ref.stages):
+            assert torch.equal(st_a.iters, st_b.iters)
+            assert torch.equal(st_a.v_final, st_b.v_final)
+
+
+def test_dispatch_executor_keeps_a_freed_input_alive(cuda):
+    """A tensor made on the caller's stream and dropped by the caller right
+    after `submit` is read correctly by the worker's stream, although the
+    caller's stream allocates and writes over same-size tensors while the
+    worker's stream still sleeps ahead of the read."""
+    from repro_torch.launch.serve import AsyncDispatchExecutor
+    n = 1 << 20
+    x = torch.arange(n, device=cuda, dtype=torch.float32)
+    expect = x.cpu()
+
+    def read_late(a, b):
+        torch.cuda._sleep(int(0.2 * 2e9))
+        return a * 1.0 + b
+
+    # load every kernel of the case first: loading a module at its first
+    # launch waits for the device, which would order the reads and writes
+    # below by itself
+    read_late(torch.full((n,), -1.0, device=cuda), x[:1])
+    torch.cuda.synchronize()
+    ex = AsyncDispatchExecutor()
+    h = ex.submit(read_late, x, torch.zeros(1, device=cuda), 0, 1)
+    del x
+    while not h.future.done():                   # the host side returned
+        pass
+    time.sleep(0.05)             # and the worker thread dropped the batch
+    junk = [torch.full((n,), -1.0, device=cuda) for _ in range(4)]
+    out = ex.wait(h)
+    ex.close()
+    assert torch.equal(out.cpu(), expect)
+    assert all(bool((j == -1).all()) for j in junk)
+
+
+@pytest.mark.parametrize("engine", ["cuda_batched", "cuda"])
+def test_served_drain_matches_its_chain_on_the_card(cuda, engine):
+    """The async service on the card (threaded executor, two batches in
+    flight) gives each window the bits of the workload's batch-1 chain, and
+    every engine pass launched the engine's kernels."""
+    from repro_torch.core.pipeline import lockstep_passes
+    from repro_torch.launch.serve import AsyncBatchedEstimationService
+    from repro_torch.serving import CmaxWorkload
+
+    class Counting(CmaxWorkload):
+        passes = 0
+
+        def harvest(self, result, track_gain):
+            Counting.passes += lockstep_passes(result)
+            return super().harvest(result, track_gain)
+
+    policy = events.pow2_policy(min_bucket=4096, max_bucket=8192)
+    wl = Counting(_short_cfg(engine), policy=policy, device=cuda)
+    streams = _serve_streams(cuda)
+    svc = AsyncBatchedEstimationService(workload=wl, max_batch=2,
+                                        max_in_flight=2)
+    for sid, (wins, om0) in streams.items():
+        for k, w in enumerate(wins):
+            svc.submit(sid, w, omega_hint=om0 if k == 0 else None)
+    counted = megakernel.megakernel_stats if engine == "cuda_batched" \
+        else tile_accumulate
+    before = counted.launches
+    rs = svc.drain()
+    svc.executor.close()
+    assert counted.launches - before == Counting.passes > 0
+    assert all(r.status == "ok" for r in rs) and len(rs) == 6
+    by = {(r.stream_id, r.seq): r for r in rs}
+    for sid, (wins, om0) in streams.items():
+        state = om0.cpu().numpy()
+        for k, w in enumerate(wins):
+            b = wl.bucket_of(w)
+            data, sb, _ = wl.make_batch([w], [state], b, 1)
+            res = wl.executable(b, 1)(data, sb)
+            _, state, _, _ = wl.harvest(res, False)(0)
+            assert np.array_equal(by[(sid, k)].omega, state), (sid, k)
