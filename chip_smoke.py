@@ -49,7 +49,25 @@ paper's size, and times the kernels. Phases:
                 bits; then 2 streams x 2 windows under engine="cuda", whose
                 two kernels' launches equal its passes. Windows/s, latency,
                 batches, classes built and padding are printed;
-  6. timing     each kernel's time per launch (CUDA events; the blur kernel
+  6. energy     `locality_stats` (Table 2 ratios, Table 3 pending merge) of
+                every window of 3 at every stage, under its traced entry
+                and exit omega: the pending hits equal a host loop of the
+                reference's forward fill, the reference's invariants hold,
+                and the counts equal the CPU's wherever both devices warp
+                every event to the same pixel; the mean ratios per stage and
+                the cost model's modelled FPGA reductions are printed;
+  7. grid       `estimate_batch_sharded` (the 8 windows of 2) and
+                `estimate_streams_sharded` (the streams of 3) on a grid of
+                one entry and of two data-parallel entries that both name
+                cuda:0: bitwise equal to the local paths, megakernel
+                launches equal to the shards' lockstep passes;
+  8. serve-grid the [serve] harness at 2 streams x 4 windows under
+                `CmaxWorkload(mesh=two entries on cuda:0)`, async and sync:
+                every omega bitwise equal to the batch-1 chain, even batch
+                classes;
+  9. examples   examples/torch_quickstart.py and torch_serve_batch.py at
+                their default sizes: RMSE vs ground truth < 0.5 rad/s;
+ 10. timing     each kernel's time per launch (CUDA events; the blur kernel
                 at B=8 and at B=1, the estimate_sequence path), its prologue's,
                 its plain version's and, where one PyTorch call computes the
                 same function, that call's, against the bound set by the
@@ -400,24 +418,67 @@ def serve_chain(wl, wins, omega_hint):
     return out
 
 
+def shard_passes(result, n: int) -> int:
+    """Lockstep engine passes of a result whose leading axis ran as `n`
+    equal shards, each in lockstep on its own."""
+    from repro_torch.core.pipeline import lockstep_passes, map_result
+    m = result.omega.shape[0] // n
+    return sum(lockstep_passes(map_result(lambda a: a[i * m:(i + 1) * m],
+                                          result)) for i in range(n))
+
+
+def pass_counting(**kw):
+    """A CmaxWorkload that adds up the lockstep engine passes of every
+    batch it harvests (of each shard, under a grid)."""
+    from repro_torch.core.distributed import _dp_extent
+    from repro_torch.serving import CmaxWorkload
+
+    class PassCounting(CmaxWorkload):
+        passes = 0
+
+        def harvest(self, result, track_gain):
+            n = 1 if self.mesh is None else _dp_extent(self.mesh)
+            self.passes += shard_passes(result, n)
+            return super().harvest(result, track_gain)
+
+    return PassCounting(**kw)
+
+
+def serve_streams(seqs, n_streams):
+    """{stream id: (ragged windows, omega_true)}: the POSTER windows of the
+    first `n_streams` sequences, each cut by `ragged_lengths`."""
+    from repro_torch.data import events
+    lo, hi = SERVE_EVENTS
+    streams = {}
+    for s, (wins, om_true, _) in enumerate(seqs[:n_streams]):
+        lens = events.ragged_lengths(WINDOWS_PER_STREAM, lo, hi, seed=s)
+        streams[f"s{s}"] = (events.ragged_from_sequence(wins, lens),
+                            om_true.cpu().numpy())
+    return streams
+
+
+def submit_all(svc, streams):
+    for sid, (wins, om_true) in streams.items():
+        for k, w in enumerate(wins):
+            svc.submit(sid, w, omega_hint=om_true[0] if k == 0 else None)
+
+
+def timed_drain(svc):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs = svc.drain()
+    torch.cuda.synchronize()
+    return rs, time.perf_counter() - t0
+
+
 def serve_phase(cfg, seqs, counted, dev, card):
     """Phase 5: the serving layer on the card. Returns the launches of each
     kernel in its drain and the printed numbers."""
-    from repro_torch.core.pipeline import lockstep_passes
     from repro_torch.data import events
     from repro_torch.launch.serve import (AsyncBatchedEstimationService,
                                           AsyncDispatchExecutor,
                                           BatchedEstimationService,
                                           MonotonicClock)
-    from repro_torch.serving import CmaxWorkload
-
-    class PassCounting(CmaxWorkload):
-        """Adds up the lockstep engine passes of every batch it harvests."""
-        passes = 0
-
-        def harvest(self, result, track_gain):
-            self.passes += lockstep_passes(result)
-            return super().harvest(result, track_gain)
 
     class OverlapExecutor(AsyncDispatchExecutor):
         """The threaded executor, noting at each submit how many batches
@@ -438,34 +499,18 @@ def serve_phase(cfg, seqs, counted, dev, card):
     lo, hi = SERVE_EVENTS
     check(policy.classes(lo, hi) == (32768, 65536),
           f"classes {policy.classes(lo, hi)}")
-    streams = {}
-    for s, (wins, om_true, _) in enumerate(seqs):
-        lens = events.ragged_lengths(WINDOWS_PER_STREAM, lo, hi, seed=s)
-        streams[f"s{s}"] = (events.ragged_from_sequence(wins, lens),
-                            om_true.cpu().numpy())
+    streams = serve_streams(seqs, STREAMS)
     n_win = sum(len(w) for w, _ in streams.values())
 
-    def submit_all(svc):
-        for sid, (wins, om_true) in streams.items():
-            for k, w in enumerate(wins):
-                svc.submit(sid, w, omega_hint=om_true[0] if k == 0 else None)
-
-    def drain(svc):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rs = svc.drain()
-        torch.cuda.synchronize()
-        return rs, time.perf_counter() - t0
-
-    wl = PassCounting(cfg, policy=policy, device=dev)
+    wl = pass_counting(cfg=cfg, policy=policy, device=dev)
     ex = OverlapExecutor()
     svc = AsyncBatchedEstimationService(workload=wl, max_batch=8,
                                         max_in_flight=2,
                                         clock=MonotonicClock(), executor=ex)
-    submit_all(svc)
+    submit_all(svc, streams)
     for fn in counted:
         fn.launches = 0
-    rs, wall = drain(svc)
+    rs, wall = timed_drain(svc)
     launches = {fn.__name__: fn.launches for fn in counted}
     served_passes = wl.passes
     ex.close()
@@ -508,9 +553,9 @@ def serve_phase(cfg, seqs, counted, dev, card):
           "the executor did not overlap")
 
     sync = BatchedEstimationService(workload=wl, max_batch=8)
-    submit_all(sync)
+    submit_all(sync, streams)
     wl.passes = 0
-    rs_sync, wall_sync = drain(sync)
+    rs_sync, wall_sync = timed_drain(sync)
     sync_passes = wl.passes
     for r in rs_sync:
         check(np.array_equal(r.omega, by[(r.stream_id, r.seq)].omega),
@@ -523,17 +568,15 @@ def serve_phase(cfg, seqs, counted, dev, card):
           f", sync {1e3 * wall_sync / sync_passes:.3f}")
 
     wcfg = dataclasses.replace(cfg, engine="cuda", engine_capacity=CAPACITY)
-    wwl = PassCounting(wcfg, policy=policy, device=dev)
+    wwl = pass_counting(cfg=wcfg, policy=policy, device=dev)
     wsvc = AsyncBatchedEstimationService(workload=wwl, max_batch=8,
                                          max_in_flight=2)
     few = {sid: (wins[:2], om_true) for sid, (wins, om_true)
            in list(streams.items())[:2]}
-    for sid, (wins, om_true) in few.items():
-        for k, w in enumerate(wins):
-            wsvc.submit(sid, w, omega_hint=om_true[0] if k == 0 else None)
+    submit_all(wsvc, few)
     for fn in counted:
         fn.launches = 0
-    wrs, wwall = drain(wsvc)
+    wrs, wwall = timed_drain(wsvc)
     wlaunches = {fn.__name__: fn.launches for fn in counted}
     wpasses = wwl.passes
     wsvc.executor.close()
@@ -563,6 +606,288 @@ def serve_phase(cfg, seqs, counted, dev, card):
         compiles=svc.stats["compiles"],
         padded_slot_frac=svc.padded_slot_frac, peak_unfinished=ex.peak,
         rmse=err)
+
+
+def host_hits(act, Hs, Ws) -> int:
+    """The reference's `lax.scan` forward fill spelled as a host loop: the
+    pending-merge hits of one window's active groups (scan order) over the
+    4 tap lanes, each hit counting for the 4 channels."""
+    Wb = (Ws + 1) // 2
+    hits = 0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            carry = -2
+            for g, a in enumerate(act):
+                if a:
+                    addr = ((g // Ws + dy) // 2) * Wb + (g % Ws + dx) // 2
+                    hits += addr == carry
+                    carry = addr
+    return 4 * hits
+
+
+def energy_phase(T, cfg, streams, res, card) -> dict:
+    """Phase [energy]: `locality_stats` of every [main] window at every
+    stage on the card, under that window's traced entry and exit omega."""
+    from repro_torch.core import energy
+    from repro_torch.costmodel import account_window, load_profile
+    cam = cfg.camera
+    counts = ("n_retained", "active_groups", "eff_updates", "naive_updates")
+    shown = ("active_ratio", "outlier_ratio", "expected_update_ratio",
+             "expected_reduction", "measured_reduction")
+    stage_stats = {}                    # (s, k) -> per-stage account input
+    means, card_s, calls, moved_events, differ = [], 0.0, 0, 0, 0
+    above_one = 0
+    for si, st in enumerate(cfg.stages):
+        Hs, Ws = st.grid(cam)
+        tr = res.stages[si]
+        sums = dict.fromkeys(shown, 0.0)
+        for s in range(STREAMS):
+            for k in range(WINDOWS_PER_STREAM):
+                w = streams.map(lambda a: a[s, k])
+                om_s, om_n = tr.omega_entry[s, k], tr.omega_exit[s, k]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loc = energy.locality_stats(w, om_s, om_n, cam, st)
+                torch.cuda.synchronize()
+                card_s += time.perf_counter() - t0
+                calls += 1
+                check(all(v.device == w.device for v in loc.values()),
+                      "locality_stats left the window's device")
+                v = {key: t.item() for key, t in loc.items()}
+                # the forward fill's hits against the host loop
+                tables = T.sort_events(w, om_s, cam, st)
+                p_now = torch.gather(T.warp_events(w, om_n, cam, st.scale)
+                                     .p_act, -1, tables.perm)
+                n_out = int((tables.retained
+                             & (p_now != tables.p_ref)).sum())
+                hits = (v["active_groups"] + n_out) * 16 - v["eff_updates"]
+                want = host_hits(tables.act.tolist(), Hs, Ws)
+                check(hits == want, f"s={st.scale} window {s}/{k}: pending "
+                      f"hits {hits} != the host loop's {want}")
+                # the reference's invariants. The expected update ratio,
+                # (active groups + outliers) / retained, may pass 1, so it
+                # is held to that formula on counts taken apart from
+                # locality_stats; its two terms keep their [0, 1] bounds
+                for key in ("active_ratio", "outlier_ratio"):
+                    check(0.0 <= v[key] <= 1.0, f"{key} {v[key]}")
+                n_act = int(tables.act.sum())
+                n_ret = max(1, int(tables.retained.sum()))
+                check(v["expected_update_ratio"]
+                      == float(np.float32(n_act + n_out) / np.float32(n_ret)),
+                      f"expected_update_ratio {v['expected_update_ratio']} "
+                      f"!= ({n_act} + {n_out}) / {n_ret}")
+                if v["expected_update_ratio"] > 1.0:
+                    above_one += 1
+                    print(f"[energy] s={st.scale} window {s}/{k}: expected "
+                          f"update ratio {v['expected_update_ratio']!r} "
+                          f"(active {v['active_ratio']!r} + outliers "
+                          f"{v['outlier_ratio']!r}); omega entry "
+                          f"{[float(x) for x in om_s.cpu()]}, exit "
+                          f"{[float(x) for x in om_n.cpu()]}")
+                check(v["measured_reduction"]
+                      >= v["expected_reduction"] - 1e-6,
+                      "the pending merge made the updates worse")
+                check(v["eff_updates"] <= v["naive_updates"],
+                      "eff_updates above naive_updates")
+                same = energy.locality_stats(w, om_s, om_s, cam, st)
+                check(same["outlier_ratio"].item() == 0.0,
+                      "outliers with omega unchanged")
+                # the same inputs through the port on the CPU
+                wc = w.map(lambda a: a.cpu())
+                cpu = energy.locality_stats(wc, om_s.cpu(), om_n.cpu(), cam,
+                                            st)
+                moved = sum(int((T.warp_events(w, om, cam, st.scale).p_act
+                                 .cpu() != T.warp_events(
+                                     wc, om.cpu(), cam, st.scale).p_act)
+                                .sum()) for om in (om_s, om_n))
+                moved_events += moved
+                c = {key: int(cpu[key]) for key in counts}
+                if moved == 0:
+                    check(all(c[key] == v[key] for key in counts),
+                          f"s={st.scale} window {s}/{k}: counts on the card "
+                          f"{[v[key] for key in counts]} != on the CPU "
+                          f"{[c[key] for key in counts]}")
+                elif any(c[key] != v[key] for key in counts):
+                    differ += 1
+                    print(f"[energy] s={st.scale} window {s}/{k}: {moved} "
+                          f"events warp to another pixel on the CPU; counts "
+                          f"{counts} card {[v[key] for key in counts]}, CPU "
+                          f"{[c[key] for key in counts]}")
+                for key in shown:
+                    sums[key] += v[key]
+                stage_stats.setdefault((s, k), []).append(dict(
+                    passes=float(tr.passes[s, k]),
+                    n_retained=float(tr.n_retained[s, k]),
+                    P=float(Hs * Ws), taps=st.blur_taps,
+                    merge_reduction=v["measured_reduction"]))
+        n = STREAMS * WINDOWS_PER_STREAM
+        means.append({key: sums[key] / n for key in shown})
+        print(f"[energy] s={st.scale} mean of {n} windows (Table 2): "
+              + ", ".join(f"{key} {means[-1][key]:.4f}" for key in shown))
+    print(f"[energy] {moved_events} events warp to another pixel on the CPU "
+          f"than on the card (either warp, all windows and stages); "
+          f"{differ} windows' counts differ because of them; the rest equal;"
+          f" {above_one} window-stages with an expected update ratio above 1")
+    hw = load_profile("paper_fpga_45nm")
+    lat, acc, e = ([], []), ([], []), ([], [])
+    for stats in stage_stats.values():
+        for j, camel in enumerate((True, False)):
+            a, en = account_window(stats, cfg, hw, camel=camel,
+                                   n_total=N_EVENTS)
+            lat[j].append(en["latency_s"])
+            acc[j].append(a.total_accesses)
+            e[j].append(en["e_total_uj"])
+    red = {name: 100.0 * (np.mean(b) - np.mean(c)) / np.mean(b)
+           for name, (c, b) in (("latency", lat), ("accesses", acc),
+                                ("energy", e))}
+    print(f"[energy] modelled FPGA figures (paper_fpga_45nm cost model on "
+          f"these measured statistics; not times or energy of the card): "
+          f"latency -{red['latency']:.1f}%, memory accesses "
+          f"-{red['accesses']:.1f}%, energy -{red['energy']:.1f}% against "
+          f"the baseline (paper: -53.3 / -42 / -52.2%)")
+    print(f"[energy] locality_stats on the card: {1e3 * card_s / calls:.3f} "
+          f"ms per call ({calls} calls), on {card}")
+    return dict(means=means, reductions=red, ms=1e3 * card_s / calls)
+
+
+def result_bitwise(a, b) -> bool:
+    """omega and every stage's iterations, passes and v_final bit-equal."""
+    return torch.equal(a.omega, b.omega) and all(
+        torch.equal(x.iters, y.iters) and torch.equal(x.passes, y.passes)
+        and torch.equal(x.v_final, y.v_final)
+        for x, y in zip(a.stages, b.stages))
+
+
+def grid_phase(T, cfg, streams, om_init, main_out, first, om_b, counted,
+               dev, card) -> dict:
+    """Phase [grid]: the sharded entry points on a one-entry grid and on
+    two data-parallel entries that both name `dev` (cuda:0), against the
+    local paths, bitwise."""
+    from repro_torch.core import distributed as D
+    from repro_torch.launch.mesh import make_mesh
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    local_b = T.estimate_batch(first, om_b, cfg)
+    torch.cuda.synchronize()
+    walls = {"local batch": time.perf_counter() - t0}
+    oms, res = main_out
+    grids = {"1 entry": make_mesh((1, 1), ("data", "model"), devices=[dev]),
+             f"2 entries on {dev}": make_mesh((2, 1), ("data", "model"),
+                                              devices=[dev] * 2)}
+    launches = {}
+    for gname, g in grids.items():
+        n = D._dp_extent(g)
+        for kind, run, local in (
+                ("batch", lambda: D.estimate_batch_sharded(
+                    first, om_b, cfg, g), local_b),
+                ("streams", lambda: D.estimate_streams_sharded(
+                    streams, om_init, cfg, g), (oms, res))):
+            for fn in counted:
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {fn.__name__: fn.launches for fn in counted}
+            r, want = (out, local) if kind == "batch" else (out[1], local[1])
+            if kind == "streams":
+                check(torch.equal(out[0], local[0]), "streams omega differs")
+            m = r.omega.shape[0] // n
+            passes = shard_passes(r, n)
+            key = f"{kind}, {gname}"
+            walls[key] = wall
+            launches[key] = got["megakernel_stats"]
+            print(f"[grid] estimate_{kind}_sharded, {gname} ({n} shards of "
+                  f"{m}): {wall:.3f} s; bitwise equal to the local path "
+                  f"{result_bitwise(r, want)}; megakernel launches "
+                  f"{got['megakernel_stats']}, the shards' lockstep passes "
+                  f"{passes}; on {card}")
+            check(result_bitwise(r, want),
+                  f"{key}: differs from the local path")
+            check(got["megakernel_stats"] == passes > 0,
+                  f"{key}: launches {got} != shard passes {passes}")
+            check(got["tile_accumulate"] == got["blur_stats_streaming"]
+                  == 0, f"{key}: a per-window kernel was launched")
+    print(f"[grid] local estimate_batch of {B_WINDOWS} windows: "
+          f"{walls['local batch']:.3f} s")
+    return dict(walls=walls, launches=launches)
+
+
+def serve_grid_phase(cfg, seqs, counted, dev, card) -> dict:
+    """Phase [serve-grid]: the [serve] harness at 2 streams x 4 windows
+    under CmaxWorkload(mesh=two entries on `dev`, cuda:0)."""
+    from repro_torch.data import events
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import (AsyncBatchedEstimationService,
+                                          BatchedEstimationService)
+    from repro_torch.serving import CmaxWorkload
+    policy = events.pow2_policy(min_bucket=16384)
+    grid = make_mesh((2, 1), ("data", "model"), devices=[dev] * 2)
+    streams = serve_streams(seqs, 2)
+    n_win = sum(len(w) for w, _ in streams.values())
+    chain = CmaxWorkload(cfg, policy=policy, device=dev)
+    want = {(sid, k): om for sid, (wins, om_true) in streams.items()
+            for k, om in enumerate(serve_chain(chain, wins, om_true[0]))}
+    out = {}
+    for kind, make in (
+            ("async", lambda wl: AsyncBatchedEstimationService(
+                workload=wl, max_batch=8, max_in_flight=2)),
+            ("sync", lambda wl: BatchedEstimationService(
+                workload=wl, max_batch=8))):
+        wl = pass_counting(cfg=cfg, policy=policy, mesh=grid)
+        svc = make(wl)
+        submit_all(svc, streams)
+        for fn in counted:
+            fn.launches = 0
+        rs, wall = timed_drain(svc)
+        mk = counted[0].launches
+        if kind == "async":
+            svc.executor.close()
+        check(len(rs) == n_win and all(r.status == "ok" for r in rs),
+              f"{kind}: {len(rs)} responses, statuses "
+              f"{sorted({r.status for r in rs})}")
+        for r in rs:
+            check(np.array_equal(r.omega, want[(r.stream_id, r.seq)]),
+                  f"{kind} grid omega of {r.stream_id}/{r.seq} differs from "
+                  f"its batch-1 chain")
+        classes = sorted({r.batch_b for r in rs})
+        check(all(b % 2 == 0 for b in classes), f"batch classes {classes}")
+        check(mk == wl.passes > 0, f"{kind}: megakernel launches {mk} != "
+              f"the served batches' passes {wl.passes}")
+        print(f"[serve-grid] {kind}: {n_win} windows (2 streams x "
+              f"{WINDOWS_PER_STREAM}) under a grid of 2 entries on {dev}: "
+              f"{wall:.3f} s, {n_win / wall:.2f} windows/s, batches "
+              f"{svc.stats['batches']} of classes {classes}; every omega "
+              f"bitwise equal to the batch-1 chain; megakernel launches {mk}"
+              f" = the shards' passes; on {card}")
+        out[kind] = dict(wall=wall, launches=mk, classes=classes)
+    return out
+
+
+def examples_phase(counted, device, card) -> dict:
+    """Phase [examples]: torch_quickstart and torch_serve_batch at their
+    default sizes on `device` (the card)."""
+    import importlib.util
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for name in ("torch_quickstart", "torch_serve_batch"):
+        path = os.path.join(root, "examples", f"{name}.py")
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        err = mod.main(["--device", device])
+        wall = time.perf_counter() - t0
+        mk = counted[0].launches
+        print(f"[examples] {name}: {wall:.3f} s, RMSE {err:.4f} rad/s, "
+              f"megakernel launches {mk}; on {card}")
+        check(err < 0.5, f"{name}: RMSE {err} >= 0.5 rad/s")
+        check(mk > 0, f"{name} launched no kernel")
+        out[name] = dict(wall=wall, rmse=err, launches=mk)
+    return out
 
 
 def main() -> int:
@@ -659,7 +984,9 @@ def main() -> int:
                 first.map(lambda a: a[i:i + 1]), om_b[i:i + 1], cam,
                 st.scale, st.blur_taps, st.blur_sigma,
                 weights=weights[i:i + 1], rb=cfg.engine_rb, fir=fir)
-            slot_ok &= bool(torch.equal(one[0], out[i]))
+            slot_ok &= bool(torch.equal(one.stats[0], out[i]))
+            slot_ok &= bool(torch.equal(one.spilled,
+                                        torch.zeros_like(one.spilled)))
         live = int(bins.pix_off[:, -1].sum())
         print(f"[kernels] s={st.scale} k={st.blur_taps} grid {Hs}x{Ws} "
               f"B={B_WINDOWS} N={N_EVENTS} live taps {live}: var rel err "
@@ -820,7 +1147,16 @@ def main() -> int:
     # ---- 5. serving ----
     served = serve_phase(cfg, seqs, counted, dev, card)
 
-    # ---- 6. timing ----
+    # ---- 6-9. Table 2 statistics, the device grid, served under a grid,
+    # the examples ----
+    energy_phase(T, cfg, streams, res, card)
+    cuda0 = torch.device("cuda", 0)
+    gridded = grid_phase(T, cfg, streams, om_init, (oms, res), first, om_b,
+                         counted, cuda0, card)
+    serve_grid_phase(cfg, seqs, counted, cuda0, card)
+    examples_phase(counted, "cuda", card)
+
+    # ---- 10. timing ----
     per_stage = []
     for st, bins, fir, kw, live in stage_inputs:
         P = kw["H"] * kw["W"]
@@ -892,6 +1228,7 @@ def main() -> int:
         per_stage=blur_rows)]
     for kern in kernels:
         kern["serve_launches"] = served["launches"][kern["name"]]
+    kernels[0]["grid_launches"] = gridded["launches"]
     for kern in kernels:
         check(kern["launches"] > 0,
               f"{kern['name']} was launched no time on its path")

@@ -10,7 +10,7 @@ from .contrast import (blur_separable, gaussian_taps, objective_direct,
 from .sorting import SortTables, retained_window, sort_events, stage_policy
 from .adaptive import (BudgetedGainThresholdController,
                        GainThresholdController, gain, should_stay)
-from . import cgpr
+from . import cgpr, energy
 from .pipeline import (StageTrace, WindowResult, estimate_batch,
                        estimate_batch_budgeted, estimate_sequence,
                        estimate_streams, estimate_window,
@@ -26,7 +26,7 @@ __all__ = [
     "objective_streaming", "stats_to_objective", "streaming_stats",
     "SortTables", "retained_window", "sort_events", "stage_policy",
     "BudgetedGainThresholdController", "GainThresholdController",
-    "gain", "should_stay", "cgpr",
+    "gain", "should_stay", "cgpr", "energy",
     "StageTrace", "WindowResult", "estimate_batch",
     "estimate_batch_budgeted", "estimate_sequence", "estimate_streams",
     "estimate_window", "estimate_window_budgeted",

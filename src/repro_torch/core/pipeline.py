@@ -120,7 +120,7 @@ def make_engine_pass(cam: Camera, stage: StageConfig,
 
         def kernel_engine(ev: EventWindow, weights: torch.Tensor,
                           omega: torch.Tensor):
-            v, g = batched_engine_pass(
+            v, g, _spilled = batched_engine_pass(
                 ev.map(lambda a: a.unsqueeze(0)), omega.unsqueeze(0), cam,
                 stage.scale, stage.blur_taps, stage.blur_sigma,
                 weights=weights.unsqueeze(0), fir=fir(ev.device))
@@ -153,10 +153,11 @@ def make_batched_engine_pass(cam: Camera, stage: StageConfig,
 
         def kernel_engine(ev: EventWindow, weights: torch.Tensor,
                           omega: torch.Tensor):
-            return batched_engine_pass(
+            v, g, _spilled = batched_engine_pass(
                 ev, omega, cam, stage.scale, stage.blur_taps,
                 stage.blur_sigma, weights=weights, rb=cfg.engine_rb,
                 fir=fir(ev.device))
+            return v, g
 
         return kernel_engine
     return make_engine_pass(cam, stage, cfg.dtype, engine=cfg.engine,

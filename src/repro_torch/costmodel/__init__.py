@@ -6,10 +6,11 @@ Three layers:
 
   * `profiles` — loadable hardware characterization tables (sectioned CSV
     in the ESL-CGRA `characterization.py` shape, or TOML), schema-validated.
-    The port ships one profile under `costmodel/profiles/`,
-    `paper_fpga_45nm` (the budget scheduler's default, validated against
-    the paper's headline ratios), beside the measured paper-scale trace;
-    any other profile loads by path.
+    The port ships the reference's non-TPU profiles under
+    `costmodel/profiles/`: `paper_fpga_45nm` (the budget scheduler's
+    default, validated against the paper's headline ratios),
+    `filipkowski_fpga_estimate` and `cpu_interpret`, beside the measured
+    paper-scale trace; any other profile loads by path.
   * `model` — the analytical access/latency/energy accounting model
     (`HwParams`, `Account`, `account_stage`, `account_window`), driven by a
     loaded profile instead of baked-in literals.

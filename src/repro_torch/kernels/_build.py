@@ -37,6 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 #: kernel name -> the compiler's report (`-Xptxas -v`: registers, shared
 #: memory, spills) from the build in this process
 BUILD_LOG: Dict[str, str] = {}
@@ -114,3 +115,10 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _LIBS[name] = lib
         return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's `launches`, under a lock: shards of
+    a device grid launch from several threads at once."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1

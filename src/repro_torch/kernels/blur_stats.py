@@ -174,7 +174,7 @@ def blur_stats_streaming(channels: torch.Tensor, taps: torch.Tensor, *,
         msg = lib.blur_stats_error_string(err).decode()
         raise RuntimeError(f"blur_stats_streaming launch failed: {msg} "
                            f"({err})")
-    blur_stats_streaming.launches += 1
+    _build.count_launch(blur_stats_streaming)
     return out
 
 

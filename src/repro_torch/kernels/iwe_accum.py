@@ -119,7 +119,7 @@ def tile_accumulate(pix_local: torch.Tensor, deltas: torch.Tensor, *,
     if err != 0:
         msg = lib.tile_accumulate_error_string(err).decode()
         raise RuntimeError(f"tile_accumulate launch failed: {msg} ({err})")
-    tile_accumulate.launches += 1
+    _build.count_launch(tile_accumulate)
     return out
 
 

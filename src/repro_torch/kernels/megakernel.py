@@ -217,7 +217,7 @@ def megakernel_stats(x, y, dt, pw, rec, pix_off, key, omega, fir, *, H: int,
     if err != 0:
         msg = lib.megakernel_error_string(err).decode()
         raise RuntimeError(f"megakernel_stats launch failed: {msg} ({err})")
-    megakernel_stats.launches += 1
+    _build.count_launch(megakernel_stats)
     return out
 
 

@@ -24,8 +24,9 @@ Batched engine (`"cuda_batched"`, counterpart of `"pallas_batched"`):
                         count/scan/permute at pixel granularity); the
                         sorted keys go to the kernel too.
 `batched_engine_stats`: prologue + ONE kernel call for the whole batch ->
-                        (B, 8) Eq. 12 sums.
-`batched_engine_pass` : the same, then Eq. 12 -> (variance (B,), grad (B, 3)).
+                        `BatchedEngineOut((B, 8) Eq. 12 sums, spilled)`.
+`batched_engine_pass` : the same, then Eq. 12 -> (variance (B,),
+                        grad (B, 3), spilled (B,)).
 
 Unlike the TPU megakernel's fixed per-slab capacity, the CSR segments have
 no capacity: no tap is dropped at any event count, so the batched engine
@@ -204,6 +205,29 @@ def fused_engine_pass(ev: EventWindow, omega: torch.Tensor, cam: Camera,
     return var, grad, acc.spilled
 
 
+class BatchedEngineOut(NamedTuple):
+    stats: torch.Tensor     # (B, 8) f32 Eq. 12 running sums per window
+    spilled: torch.Tensor   # (B,) int32 contributing taps dropped: always
+                            # zero, the CSR segments have no capacity
+
+
+# One int32 zero per device, made once: `spilled` is a (B,) view of it, so
+# an engine pass adds no allocation and no launch for a result that its
+# callers drop. The view has stride 0, so writing to it (B > 1) raises.
+_ZERO: dict = {}
+
+
+def _no_spill(device: torch.device, B: int) -> torch.Tensor:
+    z = _ZERO.get(device)
+    if z is None:
+        z = torch.zeros(1, dtype=torch.int32, device=device)
+        if z.is_cuda:
+            # finished before any stream of any thread reads it
+            torch.cuda.current_stream(device).synchronize()
+        z = _ZERO.setdefault(device, z)
+    return z.expand(B)
+
+
 class TapBins(NamedTuple):
     """The kernel's inputs for one batch at one stage grid."""
 
@@ -252,9 +276,11 @@ def batched_engine_stats(ev: EventWindow, omega: torch.Tensor, cam: Camera,
                          scale: float, num_taps: int, sigma: float,
                          weights: Optional[torch.Tensor] = None,
                          rb: int = 8,
-                         fir: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full batched engine pass -> (B, 8) Eq. 12 stats: the prologue plus
-    one kernel call. `ev` arrays are (B, N) (padded slots valid=False);
+                         fir: Optional[torch.Tensor] = None
+                         ) -> BatchedEngineOut:
+    """Full batched engine pass -> (B, 8) Eq. 12 stats and (B,) spilled
+    taps (zeros), as the reference returns them: the prologue plus one
+    kernel call. `ev` arrays are (B, N) (padded slots valid=False);
     `omega` is (B, 3); `fir` may carry precomputed Gaussian taps."""
     Hs, Ws = cam.grid(scale)
     if weights is None:
@@ -263,17 +289,20 @@ def batched_engine_stats(ev: EventWindow, omega: torch.Tensor, cam: Camera,
         fir = gaussian_taps(num_taps, sigma, torch.float32, device=ev.device)
     omega = omega.to(torch.float32).contiguous()
     bins = bin_taps(ev, omega, weights, cam, scale)
-    return megakernel_stats(*bins, omega, fir, H=Hs, W=Ws, rb=rb,
-                            scale=scale, fx=cam.fx, fy=cam.fy, cx=cam.cx,
-                            cy=cam.cy)
+    stats = megakernel_stats(*bins, omega, fir, H=Hs, W=Ws, rb=rb,
+                             scale=scale, fx=cam.fx, fy=cam.fy, cx=cam.cx,
+                             cy=cam.cy)
+    return BatchedEngineOut(stats=stats, spilled=_no_spill(ev.device,
+                                                          ev.x.shape[0]))
 
 
 def batched_engine_pass(ev: EventWindow, omega: torch.Tensor, cam: Camera,
                         scale: float, num_taps: int, sigma: float,
                         weights: Optional[torch.Tensor] = None,
                         rb: int = 8, fir: Optional[torch.Tensor] = None):
-    """Batched engine pass -> (variance (B,), grad (B, 3))."""
-    stats = batched_engine_stats(ev, omega, cam, scale, num_taps, sigma,
-                                 weights=weights, rb=rb, fir=fir)
+    """Batched engine pass -> (variance (B,), grad (B, 3), spilled (B,))."""
+    out = batched_engine_stats(ev, omega, cam, scale, num_taps, sigma,
+                               weights=weights, rb=rb, fir=fir)
     Hs, Ws = cam.grid(scale)
-    return stats_to_objective(stats, Hs * Ws)
+    var, grad = stats_to_objective(out.stats, Hs * Ws)
+    return var, grad, out.spilled

@@ -433,12 +433,16 @@ class _StatsView(MutableMapping):
         return repr(dict(self))
 
 
-def _batch_class(b: int, max_batch: int) -> int:
-    """Pad a raw batch size to its power-of-two class. (The reference also
-    keeps classes divisible by a mesh's data-parallel extent; the port has
-    no mesh yet.)"""
+def _batch_class(b: int, max_batch: int, mesh) -> int:
+    """Pad a raw batch size to its power-of-two class (mesh-divisible)."""
     from ..data.events import _next_pow2
-    return min(max_batch, _next_pow2(b))
+    cls = min(max_batch, _next_pow2(b))
+    if mesh is not None:
+        from ..core.distributed import _dp_extent
+        ndev = _dp_extent(mesh)
+        cls = max(cls, ndev)
+        cls += (-cls) % ndev
+    return cls
 
 
 def _workload(cfg, workload, **kw):
@@ -467,8 +471,9 @@ class AsyncBatchedEstimationService:
         classes (default: power-of-two buckets from 512). CMAX shorthand.
       max_batch: largest batch class; smaller batches pad to the next
         power of two.
-      mesh: not supported yet (multi-device estimation is still to be
-        ported); a mesh raises NotImplementedError.
+      mesh: optional `launch.mesh.DeviceGrid` — CMAX batches then run
+        through `core.distributed.estimate_batch_sharded` (batch classes
+        kept divisible by the grid's data-parallel extent).
       clock: time source (default MonotonicClock). Deadlines are absolute
         values on this clock.
       executor: batch runner (default AsyncDispatchExecutor).
@@ -495,6 +500,7 @@ class AsyncBatchedEstimationService:
         self.cfg = getattr(workload, "cfg", cfg)
         self.policy = workload.policy
         self.max_batch = int(max_batch)
+        self.mesh = getattr(workload, "mesh", None)
         self.clock = clock or MonotonicClock()
         self.executor = executor or AsyncDispatchExecutor()
         self.max_in_flight = int(max_in_flight)
@@ -655,7 +661,7 @@ class AsyncBatchedEstimationService:
         leader = cands[0]
         bucket_n = leader.bucket_n
         batch = [r for r in cands if r.bucket_n == bucket_n][:self.max_batch]
-        batch_b = _batch_class(len(batch), self.max_batch)
+        batch_b = _batch_class(len(batch), self.max_batch, self.mesh)
 
         taken = {id(r) for r in batch}
         self._queue = [r for r in self._queue if id(r) not in taken]
@@ -826,6 +832,7 @@ class BatchedEstimationService:
         self.cfg = getattr(workload, "cfg", cfg)
         self.policy = workload.policy
         self.max_batch = int(max_batch)
+        self.mesh = getattr(workload, "mesh", None)
         # the sync drain has no scheduler clock; one is carried only so
         # telemetry spans get timestamps (responses stay t=0)
         self.clock = clock or MonotonicClock()
@@ -880,7 +887,7 @@ class BatchedEstimationService:
         return fn
 
     def _batch_class(self, b: int) -> int:
-        return _batch_class(b, self.max_batch)
+        return _batch_class(b, self.max_batch, self.mesh)
 
     # -- batch formation + execution ---------------------------------------
 

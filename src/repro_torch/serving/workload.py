@@ -179,24 +179,33 @@ class CmaxWorkload(Workload):
     classes, with `costmodel.BudgetScheduler` iteration caps).
 
     Batches are built on `device` (default: the card, raising without
-    one; pass "cpu" for the plain path). A `mesh` is not supported yet:
-    multi-device data parallelism (`core/distributed.py`) is still to be
-    ported."""
+    one; pass "cpu" for the plain path). Under a `mesh` (a
+    `launch.mesh.DeviceGrid`) batches are built on the grid's first device
+    and run through `core.distributed.estimate_batch_sharded`, one shard
+    per data-parallel index; budgeted QoS classes are then refused."""
 
     name = "cmax"
-    supports_budgets = True
 
     def __init__(self, cfg, policy=None, mesh=None, scheduler=None,
                  device: DeviceLike = None):
         from ..data import events as ev_data
-        if mesh is not None:
-            raise NotImplementedError(
-                "CmaxWorkload: a mesh is not supported yet — multi-device "
-                "estimation (core/distributed.py) is ROADMAP Queue 1 item 11")
         self.cfg = cfg
         self.policy = policy or ev_data.pow2_policy(min_bucket=512)
-        self.device = resolve(device)
+        self.mesh = mesh
+        self.device = (resolve(device) if mesh is None
+                       else resolve(mesh.devices.flat[0]))
         self._scheduler = scheduler     # costmodel.BudgetScheduler (lazy)
+
+    @property
+    def supports_budgets(self) -> bool:
+        # estimate_batch_sharded has no budgeted variant yet
+        return self.mesh is None
+
+    @property
+    def budget_unsupported_msg(self) -> str:
+        return ("budgeted QoS classes are not supported with a "
+                "mesh (estimate_batch_sharded has no budgeted "
+                "variant yet)")
 
     # -- request side --------------------------------------------------------
 
@@ -239,6 +248,10 @@ class CmaxWorkload(Workload):
         from ..core.pipeline import estimate_batch, estimate_batch_budgeted
 
         cfg = self.cfg
+        if self.mesh is not None:
+            from ..core.distributed import estimate_batch_sharded
+            mesh = self.mesh
+            return lambda w, o: estimate_batch_sharded(w, o, cfg, mesh)
         if budgeted:
             return lambda w, o, caps: estimate_batch_budgeted(w, o, caps,
                                                               cfg)

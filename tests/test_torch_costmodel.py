@@ -24,12 +24,15 @@ REF_PROFILES = sorted(glob.glob(os.path.join(R.PROFILE_DIR, "*.csv"))
 
 def test_shipped_files_are_byte_identical_copies():
     shipped = sorted(os.listdir(T.PROFILE_DIR))
-    assert shipped == ["paper_fpga_45nm.csv", "paper_trace_40k.json"]
+    assert shipped == ["cpu_interpret.toml", "filipkowski_fpga_estimate.toml",
+                       "paper_fpga_45nm.csv", "paper_trace_40k.json"]
     for name in shipped:
         with open(os.path.join(T.PROFILE_DIR, name), "rb") as f, \
                 open(os.path.join(R.PROFILE_DIR, name), "rb") as g:
             assert f.read() == g.read(), name
-    assert T.available_profiles() == ["paper_fpga_45nm"]
+    assert T.available_profiles() == ["cpu_interpret",
+                                      "filipkowski_fpga_estimate",
+                                      "paper_fpga_45nm"]
     assert T.paper_trace() == R.paper_trace()
     assert sorted(T.__all__) == sorted(R.__all__)
 

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 import repro_torch.core as T
-from repro_torch.core.pipeline import lockstep_passes
+from repro_torch.core.pipeline import lockstep_passes, map_result
 from repro_torch.data import events
 from repro_torch.kernels import (_build, blur_stats_streaming,
                                  blur_stats_streaming_plain, megakernel, ops,
@@ -607,7 +607,7 @@ def test_served_drain_matches_its_chain_on_the_card(cuda, engine):
     """The async service on the card (threaded executor, two batches in
     flight) gives each window the bits of the workload's batch-1 chain, and
     every engine pass launched the engine's kernels."""
-    from repro_torch.core.pipeline import lockstep_passes
+    from repro_torch.core.pipeline import lockstep_passes, map_result
     from repro_torch.launch.serve import AsyncBatchedEstimationService
     from repro_torch.serving import CmaxWorkload
 
@@ -642,3 +642,117 @@ def test_served_drain_matches_its_chain_on_the_card(cuda, engine):
             res = wl.executable(b, 1)(data, sb)
             _, state, _, _ = wl.harvest(res, False)(0)
             assert np.array_equal(by[(sid, k)].omega, state), (sid, k)
+
+
+# ---- core/energy.py and core/distributed.py on the card ----
+
+
+def _host_hits(act, Hs, Ws):
+    """The reference's `lax.scan` forward fill spelled as a host loop: the
+    pending-merge hits of one window's active groups over the 4 tap lanes
+    (each hit counts for the 4 channels)."""
+    Wb = (Ws + 1) // 2
+    hits = 0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            carry = -2
+            for g, a in enumerate(act):
+                if a:
+                    addr = ((g // Ws + dy) // 2) * Wb + (g % Ws + dx) // 2
+                    hits += addr == carry
+                    carry = addr
+    return 4 * hits
+
+
+def test_locality_stats_on_the_card_matches_the_host_fill(windows):
+    from repro_torch.core import energy
+    wins, om_imu, om_true = windows
+    for st in T.CmaxConfig().stages:
+        Hs, Ws = st.grid(CAM)
+        for b in range(wins.x.shape[0]):
+            w = wins.map(lambda a: a[b])
+            loc = energy.locality_stats(w, om_imu[b], om_true[b], CAM, st)
+            assert all(v.is_cuda for v in loc.values())
+            tables = T.sort_events(w, om_imu[b], CAM, st)
+            p_now = torch.gather(T.warp_events(w, om_true[b], CAM, st.scale)
+                                 .p_act, -1, tables.perm)
+            n_out = int((tables.retained & (p_now != tables.p_ref)).sum())
+            hits = (int(loc["active_groups"]) + n_out) * 16 \
+                - int(loc["eff_updates"])
+            assert hits == _host_hits(tables.act.tolist(), Hs, Ws)
+            for key in ("active_ratio", "outlier_ratio"):
+                assert 0.0 <= float(loc[key]) <= 1.0
+            # (active groups + outliers) / retained: each term is at most
+            # 1, and their sum may pass 1, so it is held to the formula
+            n_act = int(tables.act.sum())
+            n_ret = max(1, int(tables.retained.sum()))
+            assert float(loc["expected_update_ratio"]) == float(
+                np.float32(n_act + n_out) / np.float32(n_ret))
+            assert int(loc["eff_updates"]) <= int(loc["naive_updates"])
+            same = energy.locality_stats(w, om_imu[b], om_imu[b], CAM, st)
+            assert float(same["outlier_ratio"]) == 0.0
+
+
+def _two_shard_grid():
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((2, 1), ("data", "model"), devices=["cuda:0"] * 2)
+
+
+def test_grid_on_one_card_reraises_a_shards_exception(cuda, monkeypatch):
+    from repro_torch.core import distributed as D
+    wins = T.EventWindow(*[torch.zeros(4, 16, device=cuda)
+                           for _ in range(4)])
+    om = torch.zeros(4, 3, device=cuda)
+    om[2, 0] = 1.0                                   # the second shard
+    ran = []
+
+    def flaky(w, o, cfg):
+        ran.append(torch.cuda.current_stream().cuda_stream)
+        if float(o[0, 0]) == 1.0:
+            raise ArithmeticError("shard failed")
+        return T.WindowResult(omega=o * 2, stages=())
+
+    monkeypatch.setattr(D, "estimate_windows_parallel", flaky)
+    with pytest.raises(ArithmeticError, match="shard failed"):
+        D.estimate_batch_sharded(wins, om, T.CmaxConfig(), _two_shard_grid())
+    assert len(ran) == 2 and ran[0] != ran[1]    # a stream per shard
+
+
+def test_grid_gather_waits_for_each_shards_end(cuda, monkeypatch):
+    """Each shard writes its output only after the device has slept; the
+    gathered result still holds the written values, not the zeros the
+    output held before."""
+    from repro_torch.core import distributed as D
+    wins = T.EventWindow(*[torch.zeros(4, 16, device=cuda)
+                           for _ in range(4)])
+    om = torch.arange(12, dtype=torch.float32, device=cuda).view(4, 3)
+    torch.zeros(1, device=cuda).add_(1)      # load the kernels first
+    torch.cuda.synchronize()
+
+    def late(w, o, cfg):
+        out = torch.zeros_like(o)
+        torch.cuda._sleep(int(0.3 * 2e9))         # ~0.3 s on the device
+        out.add_(o + 1)
+        return T.WindowResult(omega=out, stages=())
+
+    monkeypatch.setattr(D, "estimate_windows_parallel", late)
+    res = D.estimate_batch_sharded(wins, om, T.CmaxConfig(),
+                                   _two_shard_grid())
+    assert torch.equal(res.omega.cpu(), (om + 1).cpu())
+
+
+def test_grid_on_one_card_is_bitwise_the_local_batch(windows):
+    from repro_torch.core import distributed as D
+    wins, om_imu, _ = windows
+    cfg = _short_cfg("cuda_batched")
+    local = T.estimate_batch(wins, om_imu, cfg)
+    before = megakernel.megakernel_stats.launches
+    res = D.estimate_batch_sharded(wins, om_imu, cfg, _two_shard_grid())
+    launches = megakernel.megakernel_stats.launches - before
+    shard_passes = sum(lockstep_passes(map_result(
+        lambda a: a[lo:lo + 2], res)) for lo in (0, 2))
+    assert launches == shard_passes > 0
+    assert torch.equal(res.omega, local.omega)
+    for st_a, st_b in zip(res.stages, local.stages):
+        assert torch.equal(st_a.iters, st_b.iters)
+        assert torch.equal(st_a.v_final, st_b.v_final)

@@ -74,8 +74,9 @@ def test_engine_matches_reference_engine(scale, k):
                           blur_sigma=sigma, keep_ratio=scale)
     v_ref, g_ref = jax.jit(jax.vmap(r_make_engine_pass(
         jcam, stage, jnp.float32)))(jb, jnp.asarray(wts), jnp.asarray(om))
-    v, g = ops.batched_engine_pass(_win(jb), torch.tensor(om), _cam(jcam),
-                                   scale, k, sigma, weights=torch.tensor(wts))
+    v, g, _ = ops.batched_engine_pass(_win(jb), torch.tensor(om), _cam(jcam),
+                                      scale, k, sigma,
+                                      weights=torch.tensor(wts))
     _assert_engine_close(v.numpy(), g.numpy(), v_ref, g_ref)
     # the port's own reference engine agrees too
     v2, g2 = T.make_engine_pass(_cam(jcam), T.StageConfig(
@@ -91,8 +92,9 @@ def test_engine_matches_pallas_batched_at_zero_spill(scale, k):
         jb, jnp.asarray(om), jcam, scale, k, 1.0, weights=jnp.asarray(wts),
         capacity=2048, chunk=128)
     assert int(jnp.sum(spilled)) == 0
-    v, g = ops.batched_engine_pass(_win(jb), torch.tensor(om), _cam(jcam),
-                                   scale, k, 1.0, weights=torch.tensor(wts))
+    v, g, _ = ops.batched_engine_pass(_win(jb), torch.tensor(om), _cam(jcam),
+                                      scale, k, 1.0,
+                                      weights=torch.tensor(wts))
     _assert_engine_close(v.numpy(), g.numpy(), v_mk, g_mk)
 
 
@@ -109,8 +111,9 @@ def test_no_capacity_where_the_tpu_kernel_spills():
                           blur_sigma=1.0, keep_ratio=1.0)
     v_ref, g_ref = jax.jit(jax.vmap(r_make_engine_pass(
         jcam, stage, jnp.float32)))(jb, jnp.ones((1, 400), jnp.float32), om)
-    v, g = ops.batched_engine_pass(_win(jb), torch.tensor(np.asarray(om)),
-                                   _cam(jcam), 1.0, 9, 1.0)
+    v, g, _ = ops.batched_engine_pass(_win(jb),
+                                      torch.tensor(np.asarray(om)),
+                                      _cam(jcam), 1.0, 9, 1.0)
     _assert_engine_close(v.numpy(), g.numpy(), v_ref, g_ref)
 
 
@@ -202,14 +205,14 @@ def test_slot_independence_bitwise():
     cam = _cam(jcam)
     ev = _win(jb)
     out_b = ops.batched_engine_stats(ev, torch.tensor(om), cam, 0.5, 5, 0.75,
-                                     weights=torch.tensor(wts))
+                                     weights=torch.tensor(wts)).stats
     for i in range(4):
         out_1 = ops.batched_engine_stats(
             ev.map(lambda a: a[i:i + 1]), torch.tensor(om[i:i + 1]), cam,
-            0.5, 5, 0.75, weights=torch.tensor(wts[i:i + 1]))
+            0.5, 5, 0.75, weights=torch.tensor(wts[i:i + 1])).stats
         assert torch.equal(out_1[0], out_b[i])
     again = ops.batched_engine_stats(ev, torch.tensor(om), cam, 0.5, 5, 0.75,
-                                     weights=torch.tensor(wts))
+                                     weights=torch.tensor(wts)).stats
     assert torch.equal(again, out_b)
 
 
@@ -223,13 +226,34 @@ def test_padded_and_dead_slots():
     om = torch.tensor([[0.4, 0.1, -0.8], [1.0, -1.0, 0.5], [0.2, 0.2, 0.2]])
     full = ops.batched_engine_stats(
         _win(_stack(live + [random_window(256, cam=jcam, seed=99)])), om,
-        cam, 1.0, 9, 1.0)
+        cam, 1.0, 9, 1.0).stats
     holey = ops.batched_engine_stats(_win(_stack(live + [dead])), om, cam,
-                                     1.0, 9, 1.0)
+                                     1.0, 9, 1.0).stats
     for i in range(2):
         assert torch.equal(full[i], holey[i])
     assert bool(torch.isfinite(holey[2]).all())
     assert float(holey[2].abs().max()) == 0.0
+
+
+def test_batched_api_returns_the_references_structure():
+    """`batched_engine_stats` returns `BatchedEngineOut(stats, spilled)` and
+    `batched_engine_pass` a triple, as the reference's; the CSR kernel
+    drops no tap, so `spilled` is (B,) int32 zeros."""
+    jcam, jb, om, wts = _batch(n=300, b=3, seed=21)
+    cam = _cam(jcam)
+    args = (_win(jb), torch.tensor(om), cam, 0.5, 5, 0.75)
+    out = ops.batched_engine_stats(*args, weights=torch.tensor(wts))
+    assert isinstance(out, ops.BatchedEngineOut)
+    assert out._fields == ("stats", "spilled")
+    assert out.stats.shape == (3, 8)
+    assert out.spilled.dtype == torch.int32 and out.spilled.shape == (3,)
+    assert not bool(out.spilled.any())
+    v, g, spilled = ops.batched_engine_pass(*args, weights=torch.tensor(wts))
+    assert v.shape == (3,) and g.shape == (3, 3)
+    assert torch.equal(spilled, out.spilled)
+    vs, gs = T.stats_to_objective(out.stats, cam.grid(0.5)[0]
+                                  * cam.grid(0.5)[1])
+    assert torch.equal(v, vs) and torch.equal(g, gs)
 
 
 def test_cpu_wrapper_runs_the_plain_version_and_counts_nothing():

@@ -1,6 +1,8 @@
-"""The port as a package: every module imports with JAX and the reference
-package blocked, and two threads that first use a kernel at once run one
-build (`kernels/_build.py::load`)."""
+"""The port as a package: every module (and the port's examples and
+profile gate) imports with JAX and the reference package blocked, two
+threads that first use a kernel at once run one build
+(`kernels/_build.py::load`), and launch counts lose no update across
+threads."""
 import os
 import subprocess
 import sys
@@ -12,11 +14,15 @@ import repro_torch
 from repro_torch.kernels import _build
 
 SRC = os.path.dirname(os.path.dirname(os.path.abspath(repro_torch.__file__)))
+ROOT = os.path.dirname(SRC)
+EXTRA = [os.path.join(ROOT, "examples", f"torch_{n}.py")
+         for n in ("quickstart", "serve_batch", "adaptive_vs_fixed")] + [
+    os.path.join(ROOT, "scripts", "check_torch_profiles.py")]
 
 
 def test_every_module_imports_without_jax_or_the_reference():
     code = textwrap.dedent("""
-        import pkgutil, sys
+        import pkgutil, runpy, sys
         sys.modules["jax"] = None        # any import of them now raises
         sys.modules["repro"] = None
         import repro_torch
@@ -24,6 +30,9 @@ def test_every_module_imports_without_jax_or_the_reference():
             repro_torch.__path__, "repro_torch."))
         for name in names:
             __import__(name)
+        # the examples and the profile gate import only the port too
+        for path in sys.argv[1:]:
+            runpy.run_path(path, run_name="imported")
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "repro")
                   and sys.modules[m] is not None]
@@ -31,7 +40,7 @@ def test_every_module_imports_without_jax_or_the_reference():
         print(" ".join(names))
     """)
     env = {**os.environ, "PYTHONPATH": SRC}
-    out = subprocess.run([sys.executable, "-c", code], env=env,
+    out = subprocess.run([sys.executable, "-c", code, *EXTRA], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
@@ -42,7 +51,9 @@ def test_every_module_imports_without_jax_or_the_reference():
                 "repro_torch.costmodel.model",
                 "repro_torch.costmodel.scheduler",
                 "repro_torch.costmodel.profiles", "repro_torch.data.events",
-                "repro_torch.core.pipeline", "repro_torch.kernels.ops"):
+                "repro_torch.core.pipeline", "repro_torch.kernels.ops",
+                "repro_torch.core.energy", "repro_torch.core.distributed",
+                "repro_torch.launch.mesh"):
         assert mod in names, mod
 
 
@@ -86,3 +97,32 @@ def test_load_builds_once_when_two_threads_first_use_a_kernel(tmp_path,
     assert libs[0].path == str(_build._target("megakernel"))
     assert _build.load("megakernel") is libs[0]           # cached
     assert runs.read_text().splitlines() == ["run"]
+
+
+def test_launch_counts_lose_no_update_across_threads():
+    """Shards of a device grid launch kernels from several threads at once:
+    `count_launch` must not lose an increment (more threads than cores, a
+    very short switch interval)."""
+    def wrapper():
+        pass
+    wrapper.launches = 0
+    n_threads, per_thread = 4 * (os.cpu_count() or 1), 2000
+    start = threading.Barrier(n_threads)
+
+    def hammer():
+        start.wait(timeout=30)
+        for _ in range(per_thread):
+            _build.count_launch(wrapper)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=hammer) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(old)
+    assert wrapper.launches == n_threads * per_thread

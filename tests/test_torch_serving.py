@@ -36,6 +36,7 @@ from repro_torch.core import CmaxConfig, StageConfig, estimate_window
 from repro_torch.core.adaptive import residence_verdict
 from repro_torch.core.types import Camera
 from repro_torch.data import events as ev_data
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.serve import (AsyncBatchedEstimationService,
                                       AsyncDispatchExecutor,
                                       BatchedEstimationService, FakeClock,
@@ -877,8 +878,15 @@ def test_workload_batches_on_its_device_and_refuses_a_mesh():
     assert bool((om == 1).all())
     assert wl.executable(512, 4, donate=True).__code__ is \
         wl.executable(512, 4, donate=False).__code__
-    with pytest.raises(NotImplementedError, match="item 11"):
-        CmaxWorkload(fast_cfg(), mesh=object(), device="cpu")
+    # a device grid is served (core/distributed.py), on its first device,
+    # and budgeted QoS classes under it are refused
+    grid = make_mesh((2, 1), ("data", "model"), devices=["cpu", "cpu"])
+    gwl = CmaxWorkload(fast_cfg(), policy=POLICY, mesh=grid)
+    assert gwl.mesh is grid and gwl.device == torch.device("cpu")
+    assert not gwl.supports_budgets and wl.supports_budgets
+    with pytest.raises(ValueError, match="not supported with a mesh"):
+        AsyncBatchedEstimationService(
+            workload=gwl, qos_classes=[QosClass("eco", budget_uj=5.0)])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             CmaxWorkload(fast_cfg())
