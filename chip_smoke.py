@@ -71,7 +71,26 @@ paper's size, and times the kernels. Phases:
                 at B=8 and at B=1, the estimate_sequence path), its prologue's,
                 its plain version's and, where one PyTorch call computes the
                 same function, that call's, against the bound set by the
-                bytes and operations the function needs.
+                bytes and operations the function needs;
+ 11. lm         the LM decode-serving path, which runs none of the kernels
+                above (their launch counts must stay 0): llama3.2-1b's
+                published config (bf16, 16 layers, d_model 2048, vocab
+                128,256, random weights from a seeded generator on the card)
+                served by LMDecodeWorkload — 4 streams x 3 chunks of 8-48
+                tokens, chunk_policy(min_bucket=16), max_len 256, max_batch 4
+                — through the async service (threaded executor) and the
+                sync one: every served token sequence and every stream's
+                final KV cache bitwise equal to the workload's batch-1
+                chain, async == sync, and one batch's logits bitwise equal
+                on the caller's stream and on a worker stream. Tokens/s, ms
+                per decode step, batches, padding and peak memory are
+                printed, and one decode step's pace, its device time under
+                `torch.profiler` (idle share, launches, the costliest
+                kernels). Then an f32 copy of the config: 8 decode steps
+                reproduce `forward`'s logits (rtol 2e-2, atol 2e-3, the
+                reference's bar, greedy tokens equal); and each of the ten
+                SMOKE configs, built from one seed on the CPU and copied to
+                the card, decodes 8 tokens within that bar of the CPU.
 
 The second-to-last line is the `kernels` JSON object and the last line is
 {"ok": true, "device": {...}}. Any failed phase raises and the script exits
@@ -469,6 +488,296 @@ def timed_drain(svc):
     rs = svc.drain()
     torch.cuda.synchronize()
     return rs, time.perf_counter() - t0
+
+
+LM_ARCH = "llama3.2-1b"
+LM_STREAMS, LM_CHUNKS, LM_TOKENS = 4, 3, (8, 48)
+LM_MIN_BUCKET, LM_MAX_LEN, LM_MAX_BATCH = 16, 256, 4
+LM_RTOL, LM_ATOL = 2e-2, 2e-3    # tests/test_arch_smoke.py decode vs forward
+
+
+def lm_chain(wl, chunks):
+    """The LM workload's own batch-1 chain over one stream's chunks:
+    (tokens of each chunk, the final carried state)."""
+    state = wl.default_state()
+    out = []
+    for c in chunks:
+        b = wl.bucket_of(c)
+        data, sb, _ = wl.make_batch([c], [state], b, 1)
+        res = wl.executable(b, 1)(data, sb)
+        toks, state, _, _ = wl.harvest(res, False)(0)
+        out.append(toks)
+    return out, state
+
+
+def same_cache(a, b) -> bool:
+    """Two carried LM states hold the same positions and the same bits."""
+    for x, y in zip(a["cache"]["layers"], b["cache"]["layers"]):
+        if x.keys() != y.keys():
+            return False
+        for k in x:
+            if isinstance(x[k], torch.Tensor):
+                if not torch.equal(x[k], y[k]):
+                    return False
+            elif x[k] != y[k]:
+                return False
+    return True
+
+
+def lm_drain(svc, streams):
+    """Submit every chunk, drain, wait for the device: (responses, s)."""
+    for sid, chunks in streams.items():
+        for c in chunks:
+            svc.submit(sid, c)
+    return timed_drain(svc)
+
+
+def lm_serve_phase(cfg, counted, dev, card) -> dict:
+    """Phase 11, serving: `cfg` served by LMDecodeWorkload on `dev`
+    through the async and the sync service, each held bitwise to the
+    batch-1 chain; one batch's logits on the caller's stream and on a
+    worker stream. No CMAX kernel may launch."""
+    from repro_torch.data import lm as lm_data
+    from repro_torch.launch.serve import (AsyncBatchedEstimationService,
+                                          AsyncDispatchExecutor,
+                                          BatchedEstimationService)
+    from repro_torch.models import transformer as tt
+    from repro_torch.serving import LMDecodeWorkload
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    model = tt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}: {n_params} parameters built on "
+          f"the card in {time.perf_counter() - t0:.2f} s")
+    policy = lm_data.chunk_policy(min_bucket=LM_MIN_BUCKET)
+    wl = LMDecodeWorkload(cfg, params=model, policy=policy,
+                          max_len=LM_MAX_LEN, device=dev)
+    dcfg = lm_data.LMDataConfig(vocab_size=cfg.vocab_size,
+                                seq_len=LM_TOKENS[1], global_batch=1, seed=0)
+    streams = lm_data.token_streams(dcfg, LM_STREAMS, LM_CHUNKS, *LM_TOKENS)
+    n_tok = sum(c.n for cs in streams.values() for c in cs)
+    n_chunks = LM_STREAMS * LM_CHUNKS
+
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    ex = AsyncDispatchExecutor()
+    svc = AsyncBatchedEstimationService(workload=wl, max_batch=LM_MAX_BATCH,
+                                        executor=ex)
+    try:
+        rs_a, wall_a = lm_drain(svc, streams)
+    finally:
+        ex.close()
+    svc_s = BatchedEstimationService(workload=wl, max_batch=LM_MAX_BATCH)
+    rs_s, wall_s = lm_drain(svc_s, streams)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chains = {sid: lm_chain(wl, cs) for sid, cs in streams.items()}
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base   # the LM's own
+    launches = {fn.__name__: fn.launches for fn in counted}
+    check(all(n == 0 for n in launches.values()),
+          f"the LM path launched a CMAX kernel: {launches}")
+
+    for name, rs, s in (("async", rs_a, svc), ("sync", rs_s, svc_s)):
+        check(len(rs) == n_chunks and all(r.status == "ok" for r in rs),
+              f"{name}: not every chunk was served")
+        for r in rs:
+            want = chains[r.stream_id][0][r.seq]
+            check(np.array_equal(np.asarray(r.omega), want),
+                  f"{name}: {r.stream_id} chunk {r.seq} differs from the "
+                  f"batch-1 chain")
+        for sid in streams:
+            check(same_cache(s._warm[sid], chains[sid][1]),
+                  f"{name}: {sid}'s final KV cache differs from the chain")
+    classes = sorted({(r.bucket_n, r.batch_b) for r in rs_a})
+
+    # one batch's logits on the caller's stream and on a worker stream
+    wl_l = LMDecodeWorkload(cfg, params=model, policy=policy,
+                            max_len=LM_MAX_LEN, return_logits=True,
+                            device=dev)
+    firsts = [cs[0] for cs in streams.values()]
+    b = max(wl_l.bucket_of(c) for c in firsts)
+    data, st, _ = wl_l.make_batch(firsts, [wl_l.default_state()] *
+                                  len(firsts), b, LM_MAX_BATCH)
+    inline = wl_l.executable(b, LM_MAX_BATCH)(data, st)
+    torch.cuda.synchronize()
+    ex = AsyncDispatchExecutor()
+    try:
+        worker = ex.wait(ex.submit(wl_l.executable(b, LM_MAX_BATCH), data,
+                                   st, b, LM_MAX_BATCH))
+    finally:
+        ex.close()
+    check(torch.equal(inline.logits, worker.logits)
+          and torch.equal(inline.tokens, worker.tokens),
+          "logits differ between the caller's stream and a worker stream")
+    check(all(same_cache(x, y) for x, y in zip(inline.state, worker.state)),
+          "caches differ between the caller's stream and a worker stream")
+    check(bool(torch.isfinite(inline.logits).all()), "non-finite logits")
+
+    out = dict(n_params=n_params, tokens=n_tok, chunks=n_chunks,
+               async_s=wall_a, sync_s=wall_s, chain_s=wall_c,
+               async_tok_s=n_tok / wall_a, sync_tok_s=n_tok / wall_s,
+               chain_tok_s=n_tok / wall_c,
+               async_ms_per_step=1e3 * wall_a / n_tok,
+               sync_ms_per_step=1e3 * wall_s / n_tok,
+               chain_ms_per_step=1e3 * wall_c / n_tok,
+               async_batches=svc.stats["batches"],
+               sync_batches=svc_s.stats["batches"],
+               async_padded_slot_frac=svc.padded_slot_frac,
+               sync_padded_slot_frac=svc_s.padded_slot_frac,
+               classes=classes, peak_gb=peak / 1e9)
+    print(f"[lm] served {n_chunks} chunks ({n_tok} tokens, "
+          f"{LM_STREAMS} streams x {LM_CHUNKS}) async in {wall_a:.3f} s = "
+          f"{out['async_tok_s']:.2f} tok/s, {out['async_ms_per_step']:.3f} "
+          f"ms per decode step, {svc.stats['batches']} batches of classes "
+          f"{classes}, padded_slot_frac {svc.padded_slot_frac:.3f}; sync "
+          f"{wall_s:.3f} s = {out['sync_tok_s']:.2f} tok/s, "
+          f"{svc_s.stats['batches']} batches, padded_slot_frac "
+          f"{svc_s.padded_slot_frac:.3f}; batch-1 chain {wall_c:.3f} s; "
+          f"peak memory {out['peak_gb']:.3f} GB above what earlier phases "
+          f"hold (weights included); on {card}")
+    print(f"[lm] every served token sequence and final KV cache bitwise "
+          f"equal to the batch-1 chain, async == sync; one batch's logits "
+          f"bitwise equal on the caller's and a worker stream; CMAX kernel "
+          f"launches {launches}")
+    return out, model
+
+
+def lm_step_timing(model, dev, card, steps: int = 5) -> dict:
+    """A batch-1 decode step of the served model from position 128: its
+    pace (host clock over 20 steps, synchronized) and, under
+    `torch.profiler`, the device's busy time per step (the kernels' device
+    times; an operator's row is not summed), the idle share, the kernel
+    launches and aten calls per step and the kernels that took the most
+    device time."""
+    from repro_torch.models import transformer as tt
+    cfg = model.cfg
+    token = torch.tensor([[17]], dtype=torch.int32, device=dev)
+    cache = tt.init_cache(cfg, 1, LM_MAX_LEN, dev)
+    for c in cache["layers"]:
+        c["idx"] = 128
+    for _ in range(3):
+        tt.decode_step(model, token, cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        tt.decode_step(model, token, cache)
+    torch.cuda.synchronize()
+    pace_ms = (time.perf_counter() - t0) * 1e3 / 20
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tt.decode_step(model, token, cache)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3 / steps
+    evts = prof.key_averages()
+    kernels = [e for e in evts
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / steps / 1e3
+    out = dict(pace_ms=pace_ms, profiled_ms=prof_ms,
+               launches_per_step=sum(e.count for e in kernels) / steps,
+               aten_calls_per_step=sum(
+                   e.count for e in evts if e.key.startswith("aten::"))
+               / steps)
+    if busy_ms > 0:
+        # the profiler slows the host, not the kernels: idle share against
+        # the unprofiled pace
+        out.update(device_ms=busy_ms, idle_share=1.0 - busy_ms / pace_ms)
+        idle = f"{out['idle_share']:.3f}"
+    else:
+        idle = "not measured (the profiler saw no device time)"
+    print(f"[lm] one decode step of {cfg.name} (batch 1, from position "
+          f"128): pace {pace_ms:.3f} ms ({prof_ms:.3f} ms under the "
+          f"profiler), device busy {busy_ms:.3f} ms, idle share {idle}, "
+          f"{out['launches_per_step']:.0f} kernel launches and "
+          f"{out['aten_calls_per_step']:.0f} aten calls per step; on {card}")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:8]:
+        print(f"[lm]   kernel {e.self_device_time_total / steps:9.1f} us/step "
+              f"{e.count / steps:5.0f} calls/step  {e.key[:80]}")
+    return out
+
+
+def lm_decode_vs_forward(cfg, dev, card) -> float:
+    """8 decode steps reproduce `forward`'s logits on `dev` (the
+    reference's bar), greedy tokens equal."""
+    from repro_torch.models import transformer as tt
+    model = tt.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 8)).astype(np.int32), device=dev)
+    full = tt.forward(model, toks)
+    cache = tt.init_cache(cfg, 1, 8, dev)
+    dec = torch.cat([tt.decode_step(model, toks[:, t:t + 1], cache)[0]
+                     for t in range(8)], dim=1)
+    err = float((dec - full).abs().max())
+    ok = bool(torch.allclose(dec, full, rtol=LM_RTOL, atol=LM_ATOL))
+    same = bool(torch.equal(dec.argmax(-1), full.argmax(-1)))
+    print(f"[lm] {cfg.name} {cfg.dtype}: 8 decode steps vs forward, logits "
+          f"max abs diff {err:.3e} (rtol {LM_RTOL}, atol {LM_ATOL}), greedy "
+          f"tokens equal {same}; on {card}")
+    check(ok, f"decode differs from forward by {err}")
+    check(same, "decode's greedy tokens differ from forward's")
+    del model
+    torch.cuda.empty_cache()
+    return err
+
+
+def lm_smoke_configs(dev, card) -> float:
+    """Each SMOKE config, built from one seed on the CPU and copied to
+    `dev`: 8 decode steps there within the reference's bar of the CPU's,
+    greedy tokens equal (VLM and whisper decode against their cross
+    source). Returns the largest difference."""
+    import copy
+
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.models import transformer as tt
+    worst = 0.0
+    for arch in ARCH_IDS:
+        cfg = get_smoke_config(arch)
+        cpu = tt.init_params(cfg, torch.Generator().manual_seed(0),
+                             max_len=64, device="cpu")
+        card_model = copy.deepcopy(cpu).to(dev)
+        rng = np.random.default_rng(2)
+        toks = rng.integers(0, cfg.vocab_size, (1, 8)).astype(np.int32)
+        cross = None
+        if cfg.family == "vlm" or cfg.is_enc_dec:
+            cross = (rng.normal(size=(1, cfg.cross_source_len, cfg.d_model))
+                     * 0.1).astype(np.float32)
+        logits = {}
+        for where, m in (("cpu", cpu), ("card", card_model)):
+            d = next(m.parameters()).device
+            x = None if cross is None else torch.as_tensor(cross, device=d)
+            if x is not None and cfg.is_enc_dec:
+                x = tt.encode(m, x)
+            cache = tt.init_cache(cfg, 1, 16, d)
+            t = torch.as_tensor(toks, device=d)
+            logits[where] = torch.cat(
+                [tt.decode_step(m, t[:, i:i + 1], cache, cross_source=x)[0]
+                 for i in range(8)], dim=1).cpu()
+        err = float((logits["card"] - logits["cpu"]).abs().max())
+        worst = max(worst, err)
+        check(bool(torch.allclose(logits["card"], logits["cpu"],
+                                  rtol=LM_RTOL, atol=LM_ATOL)),
+              f"{arch}: card decode differs from the CPU's by {err}")
+        check(torch.equal(logits["card"].argmax(-1),
+                          logits["cpu"].argmax(-1)),
+              f"{arch}: card greedy tokens differ from the CPU's")
+    print(f"[lm] the {len(ARCH_IDS)} SMOKE configs decode 8 tokens on the "
+          f"card within rtol {LM_RTOL} / atol {LM_ATOL} of the CPU, greedy "
+          f"tokens equal; largest logits difference {worst:.3e}; on {card}")
+    return worst
 
 
 def serve_phase(cfg, seqs, counted, dev, card):
@@ -1232,6 +1541,21 @@ def main() -> int:
     for kern in kernels:
         check(kern["launches"] > 0,
               f"{kern['name']} was launched no time on its path")
+
+    # ---- 11. LM decode serving (no CMAX kernel on this path) ----
+    from repro_torch.configs import get_config
+    lm_cfg = get_config(LM_ARCH)
+    check((lm_cfg.dtype, lm_cfg.n_layers, lm_cfg.d_model, lm_cfg.vocab_size)
+          == ("bfloat16", 16, 2048, 128256),
+          f"{LM_ARCH} is not its published config")
+    lm, lm_model = lm_serve_phase(lm_cfg, counted, dev, card)
+    lm.update(lm_step_timing(lm_model, dev, card))
+    del lm_model
+    torch.cuda.empty_cache()
+    lm["f32_decode_vs_forward"] = lm_decode_vs_forward(
+        dataclasses.replace(lm_cfg, dtype="float32"), dev, card)
+    lm["smoke_card_vs_cpu"] = lm_smoke_configs(dev, card)
+    print(f"[lm] {json.dumps(lm)}")
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

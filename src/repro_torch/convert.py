@@ -1,11 +1,15 @@
-"""Carry configurations, windows and results across from the JAX package.
+"""Carry configurations, windows, results and LM weights across from the
+JAX package.
 
-The system has no weights, so what carries across is its configuration and
-state. `config_from_reference` reads a JAX `CmaxConfig` by attribute (it
-never imports the JAX package); windows come in and results go out as
-numpy arrays.
+The CMAX estimator has no weights, so what carries across is its
+configuration and state. `config_from_reference` reads a JAX `CmaxConfig`
+by attribute (it never imports the JAX package); windows come in and
+results go out as numpy arrays. `lm_params_from_reference` builds the
+port's LM from the reference's parameter tree, passed in as numpy arrays.
 """
 from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -63,3 +67,84 @@ def window_from_numpy(x, y, t, p, valid=None,
 def result_to_numpy(result: WindowResult) -> WindowResult:
     """The same `WindowResult` with every leaf as a numpy array."""
     return map_result(lambda a: a.detach().cpu().numpy(), result)
+
+
+# ---------------------------------------------------------------------------
+# LM weights
+# ---------------------------------------------------------------------------
+
+
+def _leaves(tree, prefix: str) -> Iterator[Tuple[str, np.ndarray]]:
+    """(dotted path, array) of every leaf of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}.{k}" if prefix else k)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}.{i}")
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: reinterpret
+        return torch.from_numpy(np.array(a).view(np.uint16)
+                                ).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def lm_params_from_reference(params_np, cfg, max_len: int = 0,
+                             device: DeviceLike = None):
+    """The port's `Transformer` holding the reference's parameters.
+
+    `params_np` is the reference's parameter tree (`init_params` of
+    `repro.models.transformer`) with numpy leaves, e.g.
+    `jax.tree.map(np.asarray, params)`. Its "scan" periods (each leaf
+    stacked over the repeats) are unstacked into layers in depth order
+    after the "prefix" layers, then the "suffix" layers follow; the
+    reference's (d, H, hd) / (H, hd, d) projections become the port's
+    (d, H*hd) / (H*hd, d) matrices by a row-major reshape. Every parameter
+    of the port must be covered. `max_len` sizes the learned positions (the
+    reference's table sets it when 0). The model is built on the CPU and
+    moved to `device` (default: the card)."""
+    from .models import transformer as tfm
+
+    plan = tfm.DepthPlan(cfg)
+    n_pre, period = len(plan.prefix), len(plan.period_kinds)
+    flat: Dict[str, np.ndarray] = {}
+    for key, sub in params_np.items():
+        if key == "prefix":
+            for path, a in _leaves(sub, ""):
+                i, rest = path[1:].split(".", 1)
+                flat[f"layers.{int(i)}.{rest}"] = a
+        elif key == "scan":
+            for path, a in _leaves(sub, ""):
+                j, rest = path[1:].split(".", 1)
+                for r in range(a.shape[0]):
+                    flat[f"layers.{n_pre + r * period + int(j)}.{rest}"] = a[r]
+        elif key == "suffix":
+            for path, a in _leaves(sub, ""):
+                i, rest = path[1:].split(".", 1)
+                at = n_pre + plan.n_rep * period + int(i)
+                flat[f"layers.{at}.{rest}"] = a
+        else:
+            flat.update(_leaves(sub, key))
+    if cfg.pos_embedding == "learned" and not max_len:
+        max_len = flat["pos.pos"].shape[0]
+
+    model = tfm.Transformer(cfg, torch.Generator().manual_seed(0), max_len)
+    own = model.state_dict()
+    missing = sorted(set(own) - set(flat))
+    extra = sorted(set(flat) - set(own))
+    if missing or extra:
+        raise ValueError(f"parameter trees differ: the port lacks {extra}, "
+                         f"the reference lacks {missing}")
+    state = {}
+    for name, t in own.items():
+        a = flat[name]
+        if a.size != t.numel():
+            raise ValueError(f"{name}: reference shape {a.shape} does not "
+                             f"fit the port's {tuple(t.shape)}")
+        state[name] = _tensor(a).reshape(t.shape).to(t.dtype)
+    model.load_state_dict(state)
+    return model.to(resolve(device))

@@ -1,6 +1,6 @@
 """Serving launchers: the async continuous-batching estimation service
 (+ the synchronous baseline), workload-agnostic over `Workload` plugins
-(counterpart of `repro.launch.serve`, CMAX arm).
+(counterpart of `repro.launch.serve`).
 
 The primary entry point is `AsyncBatchedEstimationService` (DESIGN.md
 §Serving): an admission -> bucket -> in-flight -> refill -> completion
@@ -28,6 +28,11 @@ iteration caps via `costmodel.BudgetScheduler` and dispatches through
     # the per-window kernels instead; or the plain path on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve cmax --engine cuda
     PYTHONPATH=src python -m repro_torch.launch.serve cmax --device cpu
+
+    # LM decode in variable-length token chunks (LMDecodeWorkload, the
+    # architecture's reduced smoke config), per-stream KV cache carried
+    PYTHONPATH=src python -m repro_torch.launch.serve lm \\
+        --arch llama3.2-1b --device cpu
 
 Library use:
 
@@ -1096,6 +1101,60 @@ def _run_cmax(args) -> None:
     _cli_export(svc, args)
 
 
+def _run_lm(args) -> None:
+    from ..configs import get_smoke_config
+    from ..data import lm as lm_data
+    from ..serving import LMDecodeWorkload
+
+    cfg = get_smoke_config(args.arch)
+    policy = lm_data.chunk_policy(min_bucket=args.min_bucket)
+    wl = LMDecodeWorkload(cfg, policy=policy, max_len=args.max_len,
+                          device=args.device)
+    tel = _cli_telemetry(args)
+    if args.sync:
+        svc = BatchedEstimationService(workload=wl,
+                                       max_batch=args.max_batch,
+                                       telemetry=tel)
+    else:
+        svc = AsyncBatchedEstimationService(workload=wl,
+                                            max_batch=args.max_batch,
+                                            telemetry=tel)
+
+    data_cfg = lm_data.LMDataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=args.max_tokens,
+                                    global_batch=1, seed=0)
+    streams = lm_data.token_streams(data_cfg, args.streams, args.chunks,
+                                    args.min_tokens, args.max_tokens)
+    n_tok = 0
+    for sid, chunks in streams.items():
+        for c in chunks:
+            svc.submit(sid, c)
+            n_tok += c.n
+
+    n_req = svc.pending()
+    t0 = time.perf_counter()
+    try:
+        responses = svc.drain()
+    finally:
+        if not args.sync:
+            svc.executor.close()
+    dt = time.perf_counter() - t0
+    mode = "sync FIFO drain" if args.sync else "async continuous batching"
+    where = torch.cuda.get_device_name(wl.device) \
+        if wl.device.type == "cuda" else "cpu"
+    print(f"{cfg.name}: served {len(responses)}/{n_req} chunks "
+          f"({n_tok} tokens) from {args.streams} streams in {dt:.2f}s "
+          f"({n_tok / dt:.1f} tok/s incl model build, {mode}, on {where})")
+    print(f"batches={svc.stats['batches']} compiles={svc.stats['compiles']} "
+          f"padded_slot_frac={svc.padded_slot_frac:.3f} "
+          f"policy={svc.policy.name}")
+    first = min(responses, key=lambda r: (r.stream_id, r.seq))
+    preds = np.asarray(first.omega)
+    print(f"greedy continuation ids ({first.stream_id} chunk 0, "
+          f"first {min(16, preds.size)}):", preds[:16].tolist())
+    _cli_export(svc, args)
+
+
 def main(argv=None):
     from ..core.types import CmaxConfig, ENGINES
 
@@ -1121,9 +1180,6 @@ def main(argv=None):
                     help="per-tile tap budget of the cuda engine's "
                          "accumulation kernel (taps beyond it are folded "
                          "back in: speed, not the result)")
-    cm.add_argument("--device", default="cuda",
-                    help="where batches run: cuda (the default) or cpu "
-                         "(each kernel's plain PyTorch version)")
     cm.add_argument("--sync", action="store_true",
                     help="use the synchronous FIFO-drain baseline")
     cm.add_argument("--budget-uj", type=float, default=None,
@@ -1136,16 +1192,42 @@ def main(argv=None):
                     help="refuse (status=refused) windows whose modelled "
                          "floor cost already exceeds the budget instead "
                          "of serving them at the floor")
-    cm.add_argument("--metrics-out", default=None, metavar="PATH",
-                    help="write Prometheus text-format metrics here "
-                         "after the drain")
-    cm.add_argument("--trace-out", default=None, metavar="PATH",
-                    help="write the JSONL telemetry trace (request "
-                         "spans + adaptation decisions) here; also "
-                         "enables span/decision collection")
+
+    lm = sub.add_parser("lm", help="LM decode served in variable-length "
+                                   "token chunks through the bucketed "
+                                   "async service")
+    lm.add_argument("--arch", required=True)
+    lm.add_argument("--streams", type=int, default=4)
+    lm.add_argument("--chunks", type=int, default=3,
+                    help="chunks per stream (per-stream KV cache is "
+                         "carried across them)")
+    lm.add_argument("--min-tokens", type=int, default=8)
+    lm.add_argument("--max-tokens", type=int, default=48)
+    lm.add_argument("--min-bucket", type=int, default=16)
+    lm.add_argument("--max-len", type=int, default=256,
+                    help="per-stream KV cache capacity (total tokens a "
+                         "stream may decode)")
+    lm.add_argument("--max-batch", type=int, default=4)
+    lm.add_argument("--sync", action="store_true",
+                    help="use the synchronous FIFO-drain baseline")
+
+    for p in (cm, lm):
+        p.add_argument("--device", default="cuda",
+                       help="where batches run: cuda (the default) or cpu "
+                            "(the plain PyTorch path)")
+        p.add_argument("--metrics-out", default=None, metavar="PATH",
+                       help="write Prometheus text-format metrics here "
+                            "after the drain")
+        p.add_argument("--trace-out", default=None, metavar="PATH",
+                       help="write the JSONL telemetry trace (request "
+                            "spans + adaptation decisions) here; also "
+                            "enables span/decision collection")
 
     args = ap.parse_args(argv)
-    _run_cmax(args)
+    if args.mode == "cmax":
+        _run_cmax(args)
+    else:
+        _run_lm(args)
 
 
 if __name__ == "__main__":

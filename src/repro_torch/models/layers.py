@@ -1,0 +1,349 @@
+"""Transformer building blocks (counterpart of `repro.models.layers`):
+norms, embeddings, RoPE, GQA / cross / sliding-window attention, gated
+FFNs.
+
+Each parameterized piece is an `nn.Module` whose parameter names are the
+reference's pytree keys (`wq`, `wk`, ..., `scale`, `table`), so
+`repro_torch.convert.lm_params_from_reference` maps a JAX parameter tree
+onto the modules by path. Projections are stored as 2-D matrices: the
+reference's `wq` of shape (d, H, hd) is the port's (d, H*hd) and `wo`
+(H, hd, d) is (H*hd, d) — the same numbers in row-major order.
+
+Parameters are drawn from an explicit `torch.Generator` on the generator's
+device (N(0, 1) * 0.02 in float32, then cast to the config's dtype, as the
+reference draws them) and carry no gradient: this is the serving side.
+
+KV caches are dicts of tensors plus the write position `idx`, a Python
+int. `attention_apply` writes the new keys and values into the cache's
+buffers in place and advances `idx`.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .config import ModelConfig
+
+Cache = Dict[str, object]
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _normal(g: torch.Generator, shape, dtype, std: float = 0.02
+            ) -> nn.Parameter:
+    """N(0, 1) * std drawn in float32 on the generator's device, cast."""
+    w = torch.randn(shape, generator=g, device=g.device) * std
+    return nn.Parameter(w.to(dtype), requires_grad=False)
+
+
+def _const(shape, value: float, dtype, g: torch.Generator) -> nn.Parameter:
+    return nn.Parameter(torch.full(shape, value, dtype=dtype,
+                                   device=g.device), requires_grad=False)
+
+
+def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., k) @ w (k, n) with float32 products and a float32 result
+    (the reference's `preferred_element_type=jnp.float32`). bf16 on the
+    card: one cuBLAS product with a float32 output; elsewhere both factors
+    are widened first (bf16 products are exact in float32)."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        lead = x.shape[:-1]
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                       out_dtype=torch.float32)
+        return out.reshape(*lead, w.shape[1])
+    return x.float() @ w.float()
+
+
+# ----------------------------------------------------------------------
+# norms
+# ----------------------------------------------------------------------
+
+class Norm(nn.Module):
+    """RMSNorm or LayerNorm in float32 (`norm_init` / `norm_apply`)."""
+
+    def __init__(self, cfg: ModelConfig, g: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        self.scale = _const((cfg.d_model,), 1.0, torch.float32, g)
+        if cfg.norm_kind == "layernorm":
+            self.bias = _const((cfg.d_model,), 0.0, torch.float32, g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        xf = x.float()
+        if cfg.norm_kind == "layernorm":
+            mu = xf.mean(-1, keepdim=True)
+            var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+            out = (xf - mu) * torch.rsqrt(var + cfg.norm_eps) * self.scale \
+                + self.bias
+        else:
+            ms = (xf * xf).mean(-1, keepdim=True)
+            out = xf * torch.rsqrt(ms + cfg.norm_eps) * self.scale
+        return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# embeddings
+# ----------------------------------------------------------------------
+
+class Embedding(nn.Module):
+    """Token table (`embedding_init` / `embedding_apply`)."""
+
+    def __init__(self, cfg: ModelConfig, g: torch.Generator):
+        super().__init__()
+        self.table = _normal(g, (cfg.vocab_size, cfg.d_model), _dtype(cfg))
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.table[tokens]
+
+
+class LMHead(nn.Module):
+    """Untied unembedding (`lm_head_init`); tied configs have none."""
+
+    def __init__(self, cfg: ModelConfig, g: torch.Generator):
+        super().__init__()
+        self.w = _normal(g, (cfg.d_model, cfg.vocab_size), _dtype(cfg))
+
+
+class LearnedPositions(nn.Module):
+    """Learned absolute positions (`learned_pos_init`), max_len rows."""
+
+    def __init__(self, cfg: ModelConfig, g: torch.Generator, max_len: int):
+        super().__init__()
+        self.pos = _normal(g, (max_len, cfg.d_model), _dtype(cfg))
+
+
+def unembed_apply(emb: Embedding, head: Optional[LMHead], x: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """(B, S, d) -> (B, S, V) float32 logits."""
+    w = emb.table.T if cfg.tie_embeddings or head is None else head.w
+    return f32_product(x, w)
+
+
+# ----------------------------------------------------------------------
+# RoPE
+# ----------------------------------------------------------------------
+
+def rope_freqs(cfg: ModelConfig, device=None) -> torch.Tensor:
+    """Inverse frequencies over the rotated fraction of head_dim."""
+    rot = int(cfg.head_dim * cfg.rope_fraction)
+    rot -= rot % 2
+    ar = torch.arange(0, rot, 2, dtype=torch.float32, device=device)
+    return 1.0 / (cfg.rope_theta ** (ar / rot))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, H, Dh); positions: (B, S) or (S,). Rotates the first
+    `rope_fraction` of Dh (chatglm-style 2d RoPE uses fraction=0.5), in
+    interleaved pairs as the reference does."""
+    freqs = rope_freqs(cfg, x.device)
+    rot = 2 * freqs.shape[0]
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs            # (B, S, rot/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xr = x[..., :rot].float()
+    xp = x[..., rot:]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    o1 = x1 * cos - x2 * sin
+    o2 = x1 * sin + x2 * cos
+    out = torch.stack([o1, o2], dim=-1).reshape(xr.shape).to(x.dtype)
+    return torch.cat([out, xp], dim=-1)
+
+
+# ----------------------------------------------------------------------
+# attention (GQA, cross, sliding-window; optional KV cache)
+# ----------------------------------------------------------------------
+
+class Attention(nn.Module):
+    """GQA projections (`attention_init`); `attention_apply` runs them."""
+
+    def __init__(self, cfg: ModelConfig, g: torch.Generator):
+        super().__init__()
+        d, hd, dt = cfg.d_model, cfg.head_dim, _dtype(cfg)
+        self.wq = _normal(g, (d, cfg.n_heads * hd), dt)
+        self.wk = _normal(g, (d, cfg.n_kv_heads * hd), dt)
+        self.wv = _normal(g, (d, cfg.n_kv_heads * hd), dt)
+        self.wo = _normal(g, (cfg.n_heads * hd, d), dt)
+        if cfg.qkv_bias:
+            self.bq = _const((cfg.n_heads, hd), 0.0, dt, g)
+            self.bk = _const((cfg.n_kv_heads, hd), 0.0, dt, g)
+            self.bv = _const((cfg.n_kv_heads, hd), 0.0, dt, g)
+
+
+def _qkv(p: Attention, x: torch.Tensor, kv_x: torch.Tensor,
+         cfg: ModelConfig):
+    hd = cfg.head_dim
+    q = (x @ p.wq).unflatten(-1, (cfg.n_heads, hd))
+    k = (kv_x @ p.wk).unflatten(-1, (cfg.n_kv_heads, hd))
+    v = (kv_x @ p.wv).unflatten(-1, (cfg.n_kv_heads, hd))
+    if cfg.qkv_bias:
+        q = q + p.bq
+        k = k + p.bk
+        v = v + p.bv
+    return q, k, v
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """q: (B,Sq,H,Dh); k,v: (B,Sk,Hkv,Dh); GQA via head grouping; mask
+    (1, Sq, Sk) bool or None. Scores, softmax and values in float32."""
+    B, Sq, H, Dh = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, g, Dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    scores = scores / math.sqrt(Dh)
+    if mask is not None:
+        scores = scores.masked_fill(~mask[:, None, None, :, :], -1e30)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
+    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  cfg: ModelConfig, kind: str, chunk: int) -> torch.Tensor:
+    """Query-chunked attention: never materializes the (Sq, Sk) score
+    matrix — peak temporary memory goes from O(Sq*Sk) to O(chunk*Sk) per
+    head. One chunk of queries at a time against every key."""
+    B, Sq, H, Dh = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    kf, vf = k.float(), v.float()
+    kj = torch.arange(k.shape[1], device=q.device)[None, :]
+    outs = []
+    for idx in range(Sq // chunk):
+        qc = q[:, idx * chunk:(idx + 1) * chunk].reshape(B, chunk, Hkv, g, Dh)
+        qi = idx * chunk + torch.arange(chunk, device=q.device)[:, None]
+        m = kj <= qi
+        if kind == "local" and cfg.local_window:
+            m = m & (kj > qi - cfg.local_window)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qc.float(), kf)
+        s = s / math.sqrt(Dh)
+        s = s.masked_fill(~m[None, None, None, :, :], -1e30)
+        w = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", w, vf)
+        outs.append(o.to(q.dtype))
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, Dh)
+
+
+def causal_mask(Sq: int, Sk: int, offset: int = 0,
+                device=None) -> torch.Tensor:
+    """(1, Sq, Sk) mask: query i attends keys j <= i + offset."""
+    qi = torch.arange(Sq, device=device)[:, None] + offset
+    kj = torch.arange(Sk, device=device)[None, :]
+    return (kj <= qi)[None]
+
+
+def local_mask(Sq: int, Sk: int, window: int, offset: int = 0,
+               device=None) -> torch.Tensor:
+    qi = torch.arange(Sq, device=device)[:, None] + offset
+    kj = torch.arange(Sk, device=device)[None, :]
+    return ((kj <= qi) & (kj > qi - window))[None]
+
+
+def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
+                    kv_source: Optional[torch.Tensor] = None,
+                    kind: str = "causal",
+                    positions: Optional[torch.Tensor] = None,
+                    cache: Optional[Cache] = None,
+                    ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """kind: causal | local | full | cross. With `cache`, x is the new
+    suffix (decode: Sq=1): keys/values are written at cache['idx'] (the
+    start clamped into the buffer, as `dynamic_update_slice` clamps it) or,
+    for a ring cache (local attention, a 'pos' entry), at idx % window.
+    Returns (out, cache) with the same cache dict, updated in place."""
+    B, Sq, _ = x.shape
+    dev = x.device
+    kv_x = kv_source if kv_source is not None else x
+    q, k, v = _qkv(p, x, kv_x, cfg)
+
+    pos_q = torch.arange(Sq, device=dev) if positions is None else positions
+    if cfg.pos_embedding == "rope" and kind != "cross":
+        q = apply_rope(q, pos_q, cfg)
+        k = apply_rope(k, pos_q, cfg)
+
+    if cache is not None and kind != "cross":
+        idx = cache["idx"]
+        qi = idx + torch.arange(Sq, device=dev)[:, None]
+        if "pos" in cache:
+            # ring-buffer cache for local attention: O(window) memory, the
+            # key to sub-quadratic long-context decode (long_500k)
+            W = cache["k"].shape[1]
+            if Sq != 1:
+                raise ValueError("ring cache supports single-token decode")
+            slot = idx % W
+            cache["k"][:, slot:slot + 1] = k
+            cache["v"][:, slot:slot + 1] = v
+            cache["pos"][slot] = idx
+            kp = cache["pos"][None, :]                 # global key positions
+            m = (kp >= 0) & (kp <= qi) & (kp > qi - cfg.local_window)
+        else:
+            Sk = cache["k"].shape[1]
+            start = min(max(idx, 0), Sk - Sq)
+            cache["k"][:, start:start + Sq] = k
+            cache["v"][:, start:start + Sq] = v
+            kj = torch.arange(Sk, device=dev)[None, :]
+            m = kj <= qi
+            if kind == "local" and cfg.local_window:
+                m = m & (kj > qi - cfg.local_window)
+        cache["idx"] = idx + Sq
+        k, v = cache["k"], cache["v"]
+        mask = m[None]
+    else:
+        Sk = k.shape[1]
+        if cfg.attn_q_chunk and kind in ("causal", "local") \
+                and Sq > cfg.attn_q_chunk and Sq % cfg.attn_q_chunk == 0:
+            out = _sdpa_chunked(q, k, v, cfg, kind, cfg.attn_q_chunk)
+            return out.flatten(-2) @ p.wo, cache
+        if kind == "causal":
+            mask = causal_mask(Sq, Sk, device=dev)
+        elif kind == "local":
+            mask = local_mask(Sq, Sk, cfg.local_window, device=dev)
+        else:   # full / cross
+            mask = None
+
+    out = _sdpa(q, k, v, mask)
+    return out.flatten(-2) @ p.wo, cache
+
+
+# ----------------------------------------------------------------------
+# FFN
+# ----------------------------------------------------------------------
+
+class FFN(nn.Module):
+    """SwiGLU (`wg`, `wu`, `wd`) or GELU (`wu`, `bu`, `wd`, `bd`) FFN
+    (`ffn_init` / `ffn_apply`)."""
+
+    def __init__(self, cfg: ModelConfig, g: torch.Generator,
+                 d_ff: Optional[int] = None):
+        super().__init__()
+        d_ff = d_ff or cfg.d_ff
+        d, dt = cfg.d_model, _dtype(cfg)
+        self.swiglu = cfg.ffn_kind == "swiglu"
+        if self.swiglu:
+            self.wg = _normal(g, (d, d_ff), dt)
+            self.wu = _normal(g, (d, d_ff), dt)
+            self.wd = _normal(g, (d_ff, d), dt)
+        else:
+            self.wu = _normal(g, (d, d_ff), dt)
+            self.bu = _const((d_ff,), 0.0, dt, g)
+            self.wd = _normal(g, (d_ff, d), dt)
+            self.bd = _const((d,), 0.0, dt, g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.swiglu:
+            return (F.silu(x @ self.wg) * (x @ self.wu)) @ self.wd
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(x @ self.wu + self.bu, approximate="tanh")
+        return h @ self.wd + self.bd

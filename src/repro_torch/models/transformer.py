@@ -1,0 +1,277 @@
+"""Model assembly (counterpart of `repro.models.transformer`): layer
+blocks by kind, KV/recurrent caches, encoder-decoder support. Covers all
+10 assigned architectures via ModelConfig.block_pattern.
+
+The reference scans over depth (prefix unrolled, full pattern periods
+under `lax.scan`, suffix unrolled). The port keeps one module per layer in
+depth order; `DepthPlan` still names the split, and the converter
+unstacks the reference's scanned periods into layers.
+
+A cache is {"layers": [one per decoder layer]}: attention layers hold
+"k", "v" (and "pos" for a ring buffer) and the write position "idx" (a
+Python int, so the host knows every position without reading the device);
+recurrent layers hold their state tensors. `decode_step` updates the cache
+in place and returns it; `clone_cache` gives an independent copy.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..device import DeviceLike, resolve
+from . import recurrent as rec
+from .config import ModelConfig
+from .layers import (Attention, Embedding, FFN, LearnedPositions, LMHead,
+                     Norm, _dtype, attention_apply, unembed_apply)
+from .moe import MoE
+
+Cache = Dict[str, object]
+
+
+# ----------------------------------------------------------------------
+# depth plan
+# ----------------------------------------------------------------------
+
+class DepthPlan:
+    """Split layer kinds into prefix / repeated periods / suffix."""
+
+    def __init__(self, cfg: ModelConfig):
+        kinds = list(cfg.layer_kinds)
+        self.prefix: List[str] = kinds[:cfg.first_dense_layers]
+        rest = kinds[cfg.first_dense_layers:]
+        period = len(cfg.block_pattern)
+        n_rep = len(rest) // period
+        self.n_rep = n_rep
+        self.period_kinds: Tuple[str, ...] = tuple(cfg.block_pattern)
+        self.suffix: List[str] = rest[n_rep * period:]
+
+    def __repr__(self):
+        return (f"DepthPlan(prefix={self.prefix}, "
+                f"{self.n_rep}x{self.period_kinds}, suffix={self.suffix})")
+
+
+# ----------------------------------------------------------------------
+# one block (layer) by kind
+# ----------------------------------------------------------------------
+
+class Block(nn.Module):
+    """Pre-norm residual block of one kind (`block_init` /
+    `block_apply`); submodule names are the reference's keys."""
+
+    def __init__(self, kind: str, cfg: ModelConfig, g: torch.Generator):
+        super().__init__()
+        self.kind, self.cfg = kind, cfg
+        self.ln1 = Norm(cfg, g)
+        if kind in ("attn", "local", "attn_dense", "cross", "moe"):
+            self.attn = Attention(cfg, g)
+            if kind == "cross":
+                self.lnx = Norm(cfg, g)
+                self.xattn = Attention(cfg, g)
+            self.ln2 = Norm(cfg, g)
+            if kind == "moe":
+                self.moe = MoE(cfg, g)
+            else:
+                self.ffn = FFN(cfg, g)
+        elif kind == "mlstm":
+            self.cell = rec.MLSTM(cfg, g)
+        elif kind == "slstm":
+            self.cell = rec.SLSTM(cfg, g)
+        elif kind == "rglru":
+            self.rec = rec.RGLRU(cfg, g)
+            self.ln2 = Norm(cfg, g)
+            self.ffn = FFN(cfg, g)
+        else:
+            raise ValueError(kind)
+
+    def forward(self, x: torch.Tensor, *,
+                cross_source: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[Cache] = None
+                ) -> Tuple[torch.Tensor, Optional[Cache]]:
+        """Returns (x, cache) — the same cache dict, updated."""
+        kind, cfg = self.kind, self.cfg
+        if kind in ("attn", "local", "attn_dense", "moe", "cross"):
+            akind = "local" if kind == "local" else "causal"
+            h, cache = attention_apply(self.attn, self.ln1(x), cfg,
+                                       kind=akind, positions=positions,
+                                       cache=cache)
+            x = x + h
+            if kind == "cross" and cross_source is not None:
+                h, _ = attention_apply(self.xattn, self.lnx(x), cfg,
+                                       kv_source=cross_source, kind="cross")
+                x = x + h
+            if kind == "moe":
+                x = x + self.moe(self.ln2(x))
+            else:
+                x = x + self.ffn(self.ln2(x))
+            return x, cache
+
+        if kind in ("mlstm", "slstm"):
+            xn = self.ln1(x)
+            if cache is None:
+                return x + self.cell(xn), None
+            h, cache = self.cell.step(xn, cache)
+            return x + h, cache
+
+        # rglru
+        xn = self.ln1(x)
+        if cache is None:
+            x = x + self.rec(xn)
+        else:
+            h, cache = self.rec.step(xn, cache)
+            x = x + h
+        return x + self.ffn(self.ln2(x)), cache
+
+
+def block_cache_init(kind: str, cfg: ModelConfig, B: int, max_len: int,
+                     device=None) -> Cache:
+    dh = cfg.head_dim
+    if kind in ("attn", "local", "attn_dense", "moe", "cross"):
+        kv = dict(dtype=_dtype(cfg), device=device)
+        if kind == "local" and cfg.local_window and \
+                max_len > cfg.local_window:
+            # ring buffer: O(window) memory — sub-quadratic decode state
+            W = cfg.local_window
+            return {"k": torch.zeros((B, W, cfg.n_kv_heads, dh), **kv),
+                    "v": torch.zeros((B, W, cfg.n_kv_heads, dh), **kv),
+                    "pos": torch.full((W,), -1, dtype=torch.int32,
+                                      device=device),
+                    "idx": 0}
+        return {"k": torch.zeros((B, max_len, cfg.n_kv_heads, dh), **kv),
+                "v": torch.zeros((B, max_len, cfg.n_kv_heads, dh), **kv),
+                "idx": 0}
+    if kind == "mlstm":
+        return rec.mlstm_init_cache(cfg, B, device)
+    if kind == "slstm":
+        return rec.slstm_init_cache(cfg, B, device)
+    if kind == "rglru":
+        return rec.rglru_init_cache(cfg, B, device)
+    raise ValueError(kind)
+
+
+# ----------------------------------------------------------------------
+# whole model
+# ----------------------------------------------------------------------
+
+class Encoder(nn.Module):
+    """Whisper's encoder over stubbed frontend embeddings."""
+
+    def __init__(self, cfg: ModelConfig, g: torch.Generator):
+        super().__init__()
+        self.layers = nn.ModuleList(Block("attn", cfg, g)
+                                    for _ in range(cfg.encoder_layers))
+        self.final_norm = Norm(cfg, g)
+
+
+class Transformer(nn.Module):
+    """The whole model: embedding (+ untied head, + learned positions),
+    the decoder layers in depth order, the final norm and, for enc-dec
+    configs, the encoder. Build it with `init_params`; run it with
+    `forward`, `encode` and `decode_step`."""
+
+    def __init__(self, cfg: ModelConfig, g: torch.Generator,
+                 max_len: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = Embedding(cfg, g)
+        self.lm_head = None if cfg.tie_embeddings else LMHead(cfg, g)
+        self.pos = None
+        if cfg.pos_embedding == "learned":
+            if max_len <= 0:
+                raise ValueError("learned positions need max_len > 0")
+            self.pos = LearnedPositions(cfg, g, max_len)
+        self.final_norm = Norm(cfg, g)
+        self.layers = nn.ModuleList(Block(kind, cfg, g)
+                                    for kind in cfg.layer_kinds)
+        self.encoder = Encoder(cfg, g) if cfg.is_enc_dec else None
+
+    def forward(self, tokens: torch.Tensor, *,
+                cross_source: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        return forward(self, tokens, cross_source=cross_source)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                max_len: int = 0, device: DeviceLike = None) -> Transformer:
+    """A model with random weights drawn from `generator` (on the
+    generator's device), moved to `device` (default: the card)."""
+    dev = resolve(device)
+    return Transformer(cfg, generator, max_len).to(dev)
+
+
+def encode(model: Transformer, frames: torch.Tensor) -> torch.Tensor:
+    """Encoder over stubbed frontend embeddings (B, S_enc, d)."""
+    cfg = model.cfg
+    x = frames
+    for lp in model.encoder.layers:
+        h, _ = attention_apply(lp.attn, lp.ln1(x), cfg, kind="full")
+        x = x + h
+        x = x + lp.ffn(lp.ln2(x))
+    return model.encoder.final_norm(x)
+
+
+def forward(model: Transformer, tokens: torch.Tensor, *,
+            cross_source: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence forward (prefill). tokens (B, S) -> (B, S, V) float32
+    logits. Enc-dec configs take the stub frames as `cross_source` and
+    encode them here; VLM configs take the patch embeddings."""
+    cfg = model.cfg
+    B, S = tokens.shape
+    x = model.embed(tokens)
+    if model.pos is not None:
+        x = x + model.pos.pos[None, :S]
+    positions = torch.arange(S, device=tokens.device)
+    if cfg.is_enc_dec:
+        cross_source = encode(model, cross_source)
+    for blk in model.layers:
+        x, _ = blk(x, cross_source=cross_source, positions=positions)
+    x = model.final_norm(x)
+    return unembed_apply(model.embed, model.lm_head, x, cfg)
+
+
+def cache_position(cache: Cache) -> int:
+    """Current decode position = any attention cache's idx (they advance
+    in lockstep); 0 for pure-recurrent models (which ignore positions)."""
+    for c in cache["layers"]:
+        if "idx" in c:
+            return c["idx"]
+    return 0
+
+
+def init_cache(cfg: ModelConfig, B: int, max_len: int,
+               device: DeviceLike = None) -> Cache:
+    dev = resolve(device)
+    return {"layers": [block_cache_init(k, cfg, B, max_len, dev)
+                       for k in cfg.layer_kinds]}
+
+
+def clone_cache(cache: Cache) -> Cache:
+    """An independent copy (tensors cloned, positions copied)."""
+    return {"layers": [{k: v.clone() if isinstance(v, torch.Tensor) else v
+                        for k, v in c.items()} for c in cache["layers"]]}
+
+
+def decode_step(model: Transformer, token: torch.Tensor, cache: Cache, *,
+                cross_source: Optional[torch.Tensor] = None,
+                pos: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+    """One-token decode. token: (B,1) integer. Returns ((B,1,V) float32
+    logits, cache), the cache updated in place.
+
+    For enc-dec models `cross_source` is the ALREADY-ENCODED memory (encode
+    once at serve start, not per decode step)."""
+    cfg = model.cfg
+    x = model.embed(token)
+    if pos is None:
+        pos = cache_position(cache)
+    positions = pos + torch.arange(1, device=token.device)
+    if model.pos is not None:
+        table = model.pos.pos
+        p = min(max(pos, 0), table.shape[0] - 1)   # dynamic_slice clamps
+        x = x + table[None, p:p + 1]
+    for blk, c in zip(model.layers, cache["layers"]):
+        x, _ = blk(x, cross_source=cross_source, positions=positions,
+                   cache=c)
+    x = model.final_norm(x)
+    return unembed_apply(model.embed, model.lm_head, x, cfg), cache

@@ -5,9 +5,12 @@ The batched services in `repro_torch.launch.serve` are workload-agnostic
 schedulers; everything workload-specific — bucketing, batch
 materialization, the executable factory, per-stream carried state, QoS
 budget allocation, harvest — lives behind the `Workload` interface
-defined here. One plugin ships: `CmaxWorkload`, the paper's
-contrast-maximization pipeline.
+defined here. Two plugins ship: `CmaxWorkload`, the paper's
+contrast-maximization pipeline, and `LMDecodeWorkload`, LM decode in
+variable-length token chunks.
 """
-from .workload import CmaxWorkload, SlotResult, Workload
+from .workload import (CmaxWorkload, LMChunkResult, LMDecodeWorkload,
+                       SlotResult, Workload)
 
-__all__ = ["Workload", "CmaxWorkload", "SlotResult"]
+__all__ = ["Workload", "CmaxWorkload", "LMDecodeWorkload", "LMChunkResult",
+           "SlotResult"]

@@ -12,8 +12,9 @@ not know:
     per-stream carried state (`make_batch`);
   * **the executable factory** — one batch function per (bucket, batch,
     flags) class (`executable`);
-  * **per-stream carried state** — the CMAX warm-start omega (harvested
-    state re-enters the stream's next batch);
+  * **per-stream carried state** — the CMAX warm-start omega, the LM
+    per-stream KV/recurrent cache (harvested state re-enters the stream's
+    next batch);
   * **QoS budget allocation** — turning per-window joule/ms budgets into
     per-slot iteration caps (`allocate_caps`);
   * **harvest** — slicing a finished batch back into per-slot outputs,
@@ -22,8 +23,8 @@ not know:
 The scheduler's invariants (per-stream FIFO with carried state under any
 completion order, bitwise slot independence at a fixed batch size,
 deadline shedding, executable-cache accounting) are workload contracts,
-held for this package by `tests/test_torch_serving.py`. The LM decode
-plugin of the reference is not ported yet.
+held for this package by `tests/test_torch_serving.py` (CMAX) and
+`tests/test_torch_lm_serving.py` (LM decode).
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ from ..device import DeviceLike, resolve
 
 class SlotResult(NamedTuple):
     """One harvested batch slot."""
-    output: object            # response payload (CMAX: omega (3,))
+    output: object            # response payload (CMAX: omega (3,); LM: tokens)
     state: object             # carried per-stream state for the next window
     iters: Tuple[int, ...]    # per-stage iteration counts (workload-defined)
     gain: Optional[float]     # measured gain for the budget feedback loop
@@ -73,8 +74,8 @@ class Workload:
         return self.policy.bucket_of(self.size_of(payload))
 
     def size_of(self, payload) -> int:
-        """Raw slot count of a payload (events) — the numerator of the
-        service's padding accounting."""
+        """Raw slot count of a payload (events / tokens) — the numerator
+        of the service's padding accounting."""
         return payload.n
 
     def coerce_hint(self, hint):
@@ -354,3 +355,171 @@ class CmaxWorkload(Workload):
     def null_result(self, bucket_n, batch_b):
         return types.SimpleNamespace(
             omega=np.zeros((batch_b, 3), np.float32), stages=())
+
+
+# ---------------------------------------------------------------------------
+# LM decode: variable-length token chunks, per-stream KV state carried
+# across chunks — the same serving shape as CMAX streams.
+# ---------------------------------------------------------------------------
+
+
+class LMChunkResult(NamedTuple):
+    """One served chunk batch: argmax next-token predictions per real
+    position (-1 in pad slots), the real lengths, the advanced per-stream
+    states (one {"cache": ...} per slot) and, when requested, the
+    per-position logits (zeros in pad slots)."""
+    tokens: object           # (B, bucket_n) int32, -1 beyond each length
+    lens: object             # (B,) int32
+    state: object            # list of per-slot {"cache": ...}
+    logits: object = None    # (B, bucket_n, V) float32 when requested
+
+
+class LMDecodeWorkload(Workload):
+    """LM decode served in variable-length chunks through the bucketed
+    service.
+
+    A request payload is a `TokenChunk` (repro_torch.data.lm): the next L
+    observed tokens of one stream. Serving a chunk runs L single-token
+    decode steps against the stream's carried KV/recurrent cache
+    (teacher-forced continuation — step t consumes token t and predicts
+    token t+1), then carries the advanced cache to the stream's next chunk,
+    as CMAX carries warm-start omegas.
+
+    Each slot of a batch runs as its own batch-1 decode chain (the
+    reference vmaps one stream's chunk scan over the slots): per-slot
+    results are then the bits of the batch-1 chain by construction — each
+    slot has its own cache position, its own MoE capacity
+    (`capacity_of(cfg, 1)`) and its own pad handling — which is the slot
+    independence the service's out-of-order refill relies on. Pad steps
+    are not run (the reference runs them as masked no-ops and keeps the
+    carry, so the result is the same), and fill slots, which replicate the
+    batch leader, take the leader's results rather than recomputing them.
+    A chunk starts from a clone of the stream's state, so a carried state
+    is never changed by the batch that reads it.
+
+    The model is built on `device` (default: the card, raising without
+    one; pass "cpu" for the CPU) from `torch.Generator` seed `param_seed`,
+    unless `params` (a `models.transformer.Transformer` on that device) is
+    given.
+    """
+
+    name = "lm_decode"
+    supports_budgets = False
+    PAD_TOKEN = 0            # pad input id (never influences real outputs)
+
+    def __init__(self, model_cfg, params=None, policy=None,
+                 max_len: int = 512, return_logits: bool = False,
+                 param_seed: int = 0, device: DeviceLike = None):
+        from ..data import lm as lm_data
+        self.cfg = model_cfg
+        self.policy = policy or lm_data.chunk_policy()
+        self.max_len = int(max_len)
+        self.return_logits = bool(return_logits)
+        self.device = resolve(device)
+        if params is not None:
+            where = next(params.parameters()).device
+            if where.type != self.device.type:
+                raise ValueError(f"params are on {where}, the workload "
+                                 f"serves on {self.device}")
+        self._params = params
+        self._param_seed = param_seed
+
+    # -- model plumbing ------------------------------------------------------
+
+    @property
+    def params(self):
+        """The model (built on first use when none was given)."""
+        if self._params is None:
+            from ..models import transformer as tfm
+            need_pos = self.cfg.pos_embedding == "learned"
+            g = torch.Generator(device=self.device).manual_seed(
+                self._param_seed)
+            self._params = tfm.init_params(
+                self.cfg, g, max_len=self.max_len if need_pos else 0,
+                device=self.device)
+        return self._params
+
+    def _run_chunk_batch(self, data, states) -> LMChunkResult:
+        """Every real slot's chunk as a batch-1 decode chain."""
+        from ..models import transformer as tfm
+
+        toks, lens, n_real = data
+        model = self.params
+        B, n = toks.shape
+        preds = torch.full((B, n), -1, dtype=torch.int32, device=toks.device)
+        rows = torch.zeros((B, n, self.cfg.vocab_size), dtype=torch.float32,
+                           device=toks.device) if self.return_logits \
+            else None
+        out_states = []
+        for i in range(n_real):
+            cache = tfm.clone_cache(states[i]["cache"])
+            for t in range(int(lens[i])):
+                logits, cache = tfm.decode_step(model, toks[i:i + 1, t:t + 1],
+                                                cache)
+                row = logits[0, -1]                         # (V,) float32
+                preds[i, t] = torch.argmax(row)
+                if rows is not None:
+                    rows[i, t] = row
+            out_states.append({"cache": cache})
+        # fill slots replicate the leader's data, so they take its results
+        preds[n_real:] = preds[0]
+        if rows is not None:
+            rows[n_real:] = rows[0]
+        out_states += [out_states[0]] * (B - n_real)
+        return LMChunkResult(tokens=preds, lens=torch.as_tensor(lens),
+                             state=out_states, logits=rows)
+
+    # -- carried state -------------------------------------------------------
+
+    def default_state(self):
+        from ..models import transformer as tfm
+        return {"cache": tfm.init_cache(self.cfg, 1, self.max_len,
+                                        self.device)}
+
+    def shed_output(self, state):
+        return np.zeros((0,), np.int32)      # no tokens were decoded
+
+    # -- batch materialization / execution ----------------------------------
+
+    def make_batch(self, payloads, states, bucket_n, batch_b):
+        """Tokens padded to (batch_b, bucket_n) on the device, the lengths
+        and the count of real slots on the host; states as a list (fill
+        slots repeat the leader's)."""
+        from ..data import lm as lm_data
+
+        toks, lens, n_fill = lm_data.fill_chunk_batch(
+            list(payloads), bucket_n, batch_b, pad_id=self.PAD_TOKEN)
+        st = list(states) + [states[0]] * n_fill
+        data = (torch.as_tensor(toks, device=self.device), lens,
+                batch_b - n_fill)
+        return data, st, n_fill
+
+    def executable(self, bucket_n, batch_b, *, budgeted=False, donate=True):
+        """The batch function of one class. PyTorch has no buffer
+        donation, so `donate` selects nothing (a chunk clones the state it
+        reads); the port runs eagerly, so every class shares one
+        function and the service's `compiles` counter tracks the classes
+        built."""
+        if budgeted:
+            raise NotImplementedError(
+                "LMDecodeWorkload has no budgeted executable")
+        return self._run_chunk_batch
+
+    # -- harvest -------------------------------------------------------------
+
+    def harvest(self, result, track_gain):
+        toks = _host(result.tokens)
+        lens = _host(result.lens)
+        state = result.state
+
+        def slot(i: int) -> SlotResult:
+            L = int(lens[i])
+            out = toks[i, :L].copy()
+            new_state = None if state is None else state[i]
+            return SlotResult(out, new_state, (L,), None)
+        return slot
+
+    def null_result(self, bucket_n, batch_b):
+        return types.SimpleNamespace(
+            tokens=np.full((batch_b, bucket_n), -1, np.int32),
+            lens=np.zeros((batch_b,), np.int32), state=None)

@@ -2,7 +2,10 @@
 with its plain version, gives the same bits run to run and whatever batch a
 window rides in, and carries the estimation pipeline — the batched
 engine-pass kernel under `cuda_batched`, the tile-accumulation and
-blur-statistics kernels under `cuda`.
+blur-statistics kernels under `cuda`. The LM decode-serving path, which
+runs none of those kernels, decodes every SMOKE config on the card within
+the reference's bar of the CPU and serves chunks bitwise to its batch-1
+chain there.
 
 Every test here is marked `gpu` and skips where there is no sm_90 card. The
 file imports no JAX (the card's machine has none); run it there with
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 import repro_torch.core as T
+from repro_torch.configs import ARCH_IDS
 from repro_torch.core.pipeline import lockstep_passes, map_result
 from repro_torch.data import events
 from repro_torch.kernels import (_build, blur_stats_streaming,
@@ -756,3 +760,106 @@ def test_grid_on_one_card_is_bitwise_the_local_batch(windows):
     for st_a, st_b in zip(res.stages, local.stages):
         assert torch.equal(st_a.iters, st_b.iters)
         assert torch.equal(st_a.v_final, st_b.v_final)
+
+
+# ---- the LM decode-serving path on the card (no CMAX kernel on it) ----
+
+
+def _lm_decode(model, toks, cross=None):
+    from repro_torch.models import transformer as tt
+    dev = next(model.parameters()).device
+    x = None if cross is None else torch.as_tensor(cross, device=dev)
+    if x is not None and model.cfg.is_enc_dec:
+        x = tt.encode(model, x)
+    cache = tt.init_cache(model.cfg, toks.shape[0], 16, dev)
+    t = torch.as_tensor(toks, device=dev)
+    return torch.cat([tt.decode_step(model, t[:, i:i + 1], cache,
+                                     cross_source=x)[0]
+                      for i in range(toks.shape[1])], dim=1).cpu()
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_lm_decode_on_the_card_matches_the_cpu(cuda, arch):
+    """Each SMOKE config built from one seed on the CPU and copied to the
+    card decodes 8 tokens within the reference's decode-vs-forward bar
+    (rtol 2e-2, atol 2e-3) of the CPU, greedy tokens equal."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    cpu = tt.init_params(cfg, torch.Generator().manual_seed(0), max_len=64,
+                         device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    cross = None
+    if cfg.family == "vlm" or cfg.is_enc_dec:
+        cross = (rng.normal(size=(2, cfg.cross_source_len, cfg.d_model))
+                 * 0.1).astype(np.float32)
+    got, ref = _lm_decode(card, toks, cross), _lm_decode(cpu, toks, cross)
+    torch.testing.assert_close(got, ref, rtol=2e-2, atol=2e-3)
+    assert torch.equal(got.argmax(-1), ref.argmax(-1))
+
+
+def test_lm_served_chunks_are_bitwise_on_the_card(cuda):
+    """llama3.2-1b SMOKE (bf16) served on the card: four same-class streams
+    batched together, async (threaded executor, worker stream) and sync,
+    give every slot the tokens and final KV cache of the workload's
+    batch-1 chain; one batch's logits are the same bits on the caller's
+    stream and on a worker stream."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import lm as lm_data
+    from repro_torch.launch.serve import (AsyncBatchedEstimationService,
+                                          AsyncDispatchExecutor,
+                                          BatchedEstimationService)
+    from repro_torch.serving import LMDecodeWorkload
+
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                              dtype="bfloat16")
+    wl = LMDecodeWorkload(cfg, policy=lm_data.chunk_policy(8, 64),
+                          max_len=64, return_logits=True, device=cuda)
+    streams = {}
+    for s in range(4):
+        rng = np.random.default_rng(7 + s)
+        streams[f"lm{s}"] = [lm_data.TokenChunk(rng.integers(
+            0, cfg.vocab_size, size=8).astype(np.int32)) for _ in range(2)]
+
+    def chain(chunks):
+        state, out = wl.default_state(), []
+        for c in chunks:
+            data, sb, _ = wl.make_batch([c], [state], 8, 1)
+            res = wl.executable(8, 1)(data, sb)
+            toks, state, _, _ = wl.harvest(res, False)(0)
+            out.append(toks)
+        return out, state
+
+    def same(a, b):
+        return all(torch.equal(x[k], y[k]) if torch.is_tensor(x[k])
+                   else x[k] == y[k]
+                   for x, y in zip(a["cache"]["layers"],
+                                   b["cache"]["layers"]) for k in x)
+
+    ex = AsyncDispatchExecutor()
+    svcs = [AsyncBatchedEstimationService(workload=wl, max_batch=4,
+                                          executor=ex),
+            BatchedEstimationService(workload=wl, max_batch=4)]
+    chains = {sid: chain(cs) for sid, cs in streams.items()}
+    for svc in svcs:
+        for sid, cs in streams.items():
+            for c in cs:
+                svc.submit(sid, c)
+        rs = svc.drain()
+        assert len(rs) == 8 and all(r.batch_b == 4 for r in rs)
+        for r in rs:
+            assert np.array_equal(r.omega, chains[r.stream_id][0][r.seq])
+        for sid in streams:
+            assert same(svc._warm[sid], chains[sid][1]), sid
+    firsts = [cs[0] for cs in streams.values()]
+    data, st, _ = wl.make_batch(firsts, [wl.default_state()] * 4, 8, 4)
+    inline = wl.executable(8, 4)(data, st)
+    worker = ex.wait(ex.submit(wl.executable(8, 4), data, st, 8, 4))
+    ex.close()
+    assert torch.equal(inline.logits, worker.logits)
+    assert torch.equal(inline.tokens, worker.tokens)

@@ -11,6 +11,7 @@ import threading
 import types
 
 import repro_torch
+from repro_torch.configs import ARCH_IDS
 from repro_torch.kernels import _build
 
 SRC = os.path.dirname(os.path.dirname(os.path.abspath(repro_torch.__file__)))
@@ -53,7 +54,13 @@ def test_every_module_imports_without_jax_or_the_reference():
                 "repro_torch.costmodel.profiles", "repro_torch.data.events",
                 "repro_torch.core.pipeline", "repro_torch.kernels.ops",
                 "repro_torch.core.energy", "repro_torch.core.distributed",
-                "repro_torch.launch.mesh"):
+                "repro_torch.launch.mesh", "repro_torch.data.lm",
+                "repro_torch.models", "repro_torch.models.config",
+                "repro_torch.models.layers", "repro_torch.models.moe",
+                "repro_torch.models.recurrent",
+                "repro_torch.models.transformer", "repro_torch.models.model",
+                "repro_torch.configs", "repro_torch.configs.cmax_camel",
+                *[f"repro_torch.configs.{a}" for a in ARCH_IDS]):
         assert mod in names, mod
 
 
