@@ -5,7 +5,9 @@ The CMAX estimator has no weights, so what carries across is its
 configuration and state. `config_from_reference` reads a JAX `CmaxConfig`
 by attribute (it never imports the JAX package); windows come in and
 results go out as numpy arrays. `lm_params_from_reference` builds the
-port's LM from the reference's parameter tree, passed in as numpy arrays.
+port's LM from the reference's parameter tree, passed in as numpy arrays,
+and `opt_state_from_reference` its optimizer state; both go through
+`models.leaves`, the map the optimizer's per-leaf reductions use.
 """
 from __future__ import annotations
 
@@ -93,14 +95,27 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+def _reference_flat(tree) -> Dict[str, np.ndarray]:
+    return dict(_leaves(tree, ""))
+
+
+def _check_leaves(groups, flat, what: str) -> None:
+    missing = sorted(set(groups) - set(flat))
+    extra = sorted(set(flat) - set(groups))
+    if missing or extra:
+        raise ValueError(f"{what} trees differ: the port lacks {extra}, "
+                         f"the reference lacks {missing}")
+
+
 def lm_params_from_reference(params_np, cfg, max_len: int = 0,
                              device: DeviceLike = None):
     """The port's `Transformer` holding the reference's parameters.
 
     `params_np` is the reference's parameter tree (`init_params` of
     `repro.models.transformer`) with numpy leaves, e.g.
-    `jax.tree.map(np.asarray, params)`. Its "scan" periods (each leaf
-    stacked over the repeats) are unstacked into layers in depth order
+    `jax.tree.map(np.asarray, params)`. Each port parameter takes its
+    reference leaf by `models.leaves.reference_leaf`: the "scan" periods
+    (each leaf stacked over the repeats) unstack into layers in depth order
     after the "prefix" layers, then the "suffix" layers follow; the
     reference's (d, H, hd) / (H, hd, d) projections become the port's
     (d, H*hd) / (H*hd, d) matrices by a row-major reshape. Every parameter
@@ -108,43 +123,67 @@ def lm_params_from_reference(params_np, cfg, max_len: int = 0,
     reference's table sets it when 0). The model is built on the CPU and
     moved to `device` (default: the card)."""
     from .models import transformer as tfm
+    from .models.leaves import leaf_groups, reference_leaf
 
-    plan = tfm.DepthPlan(cfg)
-    n_pre, period = len(plan.prefix), len(plan.period_kinds)
-    flat: Dict[str, np.ndarray] = {}
-    for key, sub in params_np.items():
-        if key == "prefix":
-            for path, a in _leaves(sub, ""):
-                i, rest = path[1:].split(".", 1)
-                flat[f"layers.{int(i)}.{rest}"] = a
-        elif key == "scan":
-            for path, a in _leaves(sub, ""):
-                j, rest = path[1:].split(".", 1)
-                for r in range(a.shape[0]):
-                    flat[f"layers.{n_pre + r * period + int(j)}.{rest}"] = a[r]
-        elif key == "suffix":
-            for path, a in _leaves(sub, ""):
-                i, rest = path[1:].split(".", 1)
-                at = n_pre + plan.n_rep * period + int(i)
-                flat[f"layers.{at}.{rest}"] = a
-        else:
-            flat.update(_leaves(sub, key))
+    flat = _reference_flat(params_np)
     if cfg.pos_embedding == "learned" and not max_len:
         max_len = flat["pos.pos"].shape[0]
 
     model = tfm.Transformer(cfg, torch.Generator().manual_seed(0), max_len)
     own = model.state_dict()
-    missing = sorted(set(own) - set(flat))
-    extra = sorted(set(flat) - set(own))
-    if missing or extra:
-        raise ValueError(f"parameter trees differ: the port lacks {extra}, "
-                         f"the reference lacks {missing}")
+    _check_leaves(leaf_groups(cfg, {n: t.shape for n, t in own.items()}),
+                  flat, "parameter")
     state = {}
     for name, t in own.items():
-        a = flat[name]
+        key, idx = reference_leaf(name, cfg)
+        a = flat[key] if idx is None else flat[key][idx]
         if a.size != t.numel():
             raise ValueError(f"{name}: reference shape {a.shape} does not "
                              f"fit the port's {tuple(t.shape)}")
         state[name] = _tensor(a).reshape(t.shape).to(t.dtype)
     model.load_state_dict(state)
     return model.to(resolve(device))
+
+
+def opt_state_from_reference(state_np, cfg, optimizer: str = "adamw",
+                             device: DeviceLike = None):
+    """The port's optimizer state (`train.optim.AdamWState` or
+    `AdafactorState`) holding the reference's.
+
+    `state_np` is the reference's state (`adamw_init` / `adafactor_init` of
+    `repro.train.optim`, or a state an update returned) with numpy leaves.
+    The port keeps optimizer state by reference leaf, in the reference's
+    layout (`models.leaves`), so each moment carries across as it is: the
+    AdamW moments `mu`, `nu` and the Adafactor moments `vr`, `vc` keyed by
+    the leaf's dotted path, and `step` as an int. Every leaf of the port's
+    model must be covered, at the reference's shape."""
+    from .models import transformer as tfm
+    from .train import optim
+
+    field = lambda k: state_np[k] if isinstance(state_np, dict) \
+        else getattr(state_np, k)
+    if optimizer == "adamw":
+        cls, init, ocfg = optim.AdamWState, optim.adamw_init, \
+            optim.AdamWConfig()
+    elif optimizer == "adafactor":
+        cls, init, ocfg = optim.AdafactorState, optim.adafactor_init, \
+            optim.AdafactorConfig()
+    else:
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    moments = {k: _reference_flat(field(k)) for k in cls._fields[1:]}
+    max_len = 0
+    if cfg.pos_embedding == "learned":
+        max_len = moments[cls._fields[1]]["pos.pos"].shape[0]
+    want = init(ocfg, tfm.Transformer(cfg, None, max_len))  # meta shapes
+    dev = resolve(device)
+    out = {}
+    for k, flat in moments.items():
+        shapes = getattr(want, k)
+        _check_leaves(shapes, flat, f"optimizer state {k!r}")
+        for key, a in flat.items():
+            if tuple(a.shape) != tuple(shapes[key].shape):
+                raise ValueError(f"{k} {key}: reference shape {a.shape}, "
+                                 f"the port's leaf is "
+                                 f"{tuple(shapes[key].shape)}")
+        out[k] = {key: _tensor(flat[key]).to(dev) for key in shapes}
+    return cls(step=int(np.asarray(field("step"))), **out)

@@ -1,3 +1,4 @@
 # Launch layer: the serving entry point (`python -m repro_torch.launch.serve
-# cmax`) and the single-process device grid (`mesh`). The reference's
-# production mesh, dry-run and training launchers are not ported yet.
+# cmax|lm`), the single-device training entry point (`python -m
+# repro_torch.launch.train`) and the single-process device grid (`mesh`).
+# The reference's production mesh and dry-run are not ported yet.

@@ -11,7 +11,10 @@ reference's `wq` of shape (d, H, hd) is the port's (d, H*hd) and `wo`
 
 Parameters are drawn from an explicit `torch.Generator` on the generator's
 device (N(0, 1) * 0.02 in float32, then cast to the config's dtype, as the
-reference draws them) and carry no gradient: this is the serving side.
+reference draws them); with no generator they are built on the meta device
+(shapes and dtypes only, nothing allocated). Every parameter is trainable,
+as every leaf of the reference's tree is; the serving entry points run
+under `torch.inference_mode()`.
 
 KV caches are dicts of tensors plus the write position `idx`, a Python
 int. `attention_apply` writes the new keys and values into the cache's
@@ -35,29 +38,65 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _normal(g: torch.Generator, shape, dtype, std: float = 0.02
+def _normal(g: Optional[torch.Generator], shape, dtype, std: float = 0.02
             ) -> nn.Parameter:
-    """N(0, 1) * std drawn in float32 on the generator's device, cast."""
+    """N(0, 1) * std drawn in float32 on the generator's device, cast; on
+    the meta device without a generator."""
+    if g is None:
+        return nn.Parameter(torch.empty(shape, dtype=dtype, device="meta"))
     w = torch.randn(shape, generator=g, device=g.device) * std
-    return nn.Parameter(w.to(dtype), requires_grad=False)
+    return nn.Parameter(w.to(dtype))
 
 
-def _const(shape, value: float, dtype, g: torch.Generator) -> nn.Parameter:
-    return nn.Parameter(torch.full(shape, value, dtype=dtype,
-                                   device=g.device), requires_grad=False)
+def _const(shape, value: float, dtype, g: Optional[torch.Generator]
+           ) -> nn.Parameter:
+    dev = "meta" if g is None else g.device
+    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=dev))
+
+
+class _F32Product(torch.autograd.Function):
+    """x (m, k) @ w (k, n) -> (m, n) float32 from bf16 factors on the card:
+    one cuBLAS product with a float32 output. The backward gives grad_x in
+    x's dtype and grad_w in w's, each one product with a float32 output (so
+    it accumulates in float32 whatever
+    `allow_bf16_reduced_precision_reduction` says), rounded once at the end.
+    The incoming float32 gradient is rounded to bf16 first, so both
+    products run on the bf16 tensor cores. That rounding is deliberate: the
+    reference's transposed products are float32 x bf16 einsums at the
+    default precision, which the TPU runs as one bf16 pass, rounding the
+    float32 operand the same way. Widening the other factor instead would
+    put the unembedding's backward on float32 products, several times
+    slower."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        grad_x = grad_w = None
+        if ctx.needs_input_grad[0]:
+            grad_x = torch.mm(grad.to(w.dtype), w.T,
+                              out_dtype=torch.float32).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            grad_w = torch.mm(x.T, grad.to(x.dtype),
+                              out_dtype=torch.float32).to(w.dtype)
+        return grad_x, grad_w
 
 
 def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., k) @ w (k, n) with float32 products and a float32 result
     (the reference's `preferred_element_type=jnp.float32`). bf16 on the
-    card: one cuBLAS product with a float32 output; elsewhere both factors
-    are widened first (bf16 products are exact in float32)."""
+    card: one cuBLAS product with a float32 output (`_F32Product`, which
+    has a backward); elsewhere both factors are widened first (bf16
+    products are exact in float32)."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return x @ w
     if x.is_cuda:
         lead = x.shape[:-1]
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                       out_dtype=torch.float32)
+        out = _F32Product.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*lead, w.shape[1])
     return x.float() @ w.float()
 
@@ -95,14 +134,20 @@ class Norm(nn.Module):
 # ----------------------------------------------------------------------
 
 class Embedding(nn.Module):
-    """Token table (`embedding_init` / `embedding_apply`)."""
+    """Token table (`embedding_init` / `embedding_apply`).
+
+    The lookup is `F.embedding`, not `table[tokens]`: the forward is the
+    same gather, but on the card the backward of advanced indexing adds a
+    token's repeats into a bf16 table one rounding at a time, while
+    `F.embedding`'s sums each row's repeats in float32 and rounds once. A
+    frequent token repeats hundreds of times in a batch."""
 
     def __init__(self, cfg: ModelConfig, g: torch.Generator):
         super().__init__()
         self.table = _normal(g, (cfg.vocab_size, cfg.d_model), _dtype(cfg))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.table[tokens]
+        return F.embedding(tokens, self.table)
 
 
 class LMHead(nn.Module):

@@ -1,16 +1,20 @@
 """Step factories and the assigned input shapes (counterpart of
-`repro.models.model`, serving half): the shape cells, the loss, and the
-eval / prefill / serve steps over a `transformer.Transformer`.
+`repro.models.model`): the shape cells, the loss, the train / eval /
+prefill / serve steps over a `transformer.Transformer`, and meta-device
+stand-ins for the inputs, the parameters and the optimizer state.
 
 Each factory takes the config the step is for and returns a step over a
-model of that config; a model of another config is refused. The training
-step, the abstract input specs and the abstract parameter and optimizer
-trees belong to the training and dry-run slices.
+model of that config; a model of another config is refused. The eval,
+prefill and serve steps run under `torch.inference_mode()` (no graph is
+recorded, though the parameters are trainable); the train step updates
+the model's parameters in place. The multi-device arguments (`mesh`,
+`use_ep`, `act_sharding`, `ep_fsdp`) belong to the multi-device slice and
+raise `NotImplementedError`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -62,9 +66,80 @@ def _check(model: tfm.Transformer, cfg: ModelConfig) -> None:
                          f"{model.cfg.name!r} (or another variant)")
 
 
+def loss_and_grads(model: tfm.Transformer, batch: Dict[str, torch.Tensor],
+                   *, microbatch: int = 1,
+                   accum_dtype: torch.dtype = torch.float32,
+                   remat_policy: str = "full"
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, {parameter name: gradient}) of `loss_fn(forward(...))` on
+    `batch`. With `microbatch` > 1 the batch splits along its first axis,
+    each part's gradients are added in `accum_dtype`, and the summed loss
+    and gradients are divided by `microbatch` (the reference's scan over
+    microbatches). A parameter the loss does not reach gets zeros."""
+    names, params = zip(*model.named_parameters())
+
+    def one(b):
+        logits = tfm.forward(model, b["tokens"],
+                             cross_source=b.get("cross_source"),
+                             remat_policy=remat_policy)
+        loss = loss_fn(logits, b["labels"])
+        grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                    materialize_grads=True)
+        return loss.detach(), grads
+
+    if microbatch <= 1:
+        loss, grads = one(batch)
+        return loss, dict(zip(names, grads))
+    parts = {k: v.reshape(microbatch, v.shape[0] // microbatch,
+                          *v.shape[1:]) for k, v in batch.items()}
+    dev = batch["tokens"].device
+    loss = torch.zeros((), device=dev)
+    acc = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+           for p in params]
+    for i in range(microbatch):
+        l, g = one({k: v[i] for k, v in parts.items()})
+        loss = loss + l
+        for a, gi in zip(acc, g):
+            a.add_(gi.to(accum_dtype))
+        del g
+    return loss / microbatch, {n: a / microbatch for n, a in zip(names, acc)}
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg=None, *, mesh=None,
+                    use_ep: bool = False, act_sharding=None,
+                    optimizer: str = "adamw", remat_policy: str = "full",
+                    microbatch: int = 1, ep_fsdp: bool = False,
+                    accum_dtype: torch.dtype = torch.float32) -> Callable:
+    """Returns step(model, opt_state, batch) -> (opt_state, metrics),
+    which updates the model's parameters in place. batch: dict(tokens,
+    labels [, cross_source]) on the model's device.
+
+    microbatch > 1 splits the global batch and accumulates gradients in
+    `accum_dtype`: activation memory scales down ~1/microbatch while the
+    arithmetic is unchanged."""
+    from ..train import optim as optim_lib
+    tfm.no_multi_device(mesh, use_ep, act_sharding, ep_fsdp)
+    if optimizer == "adamw":
+        ocfg = opt_cfg or optim_lib.AdamWConfig()
+        upd = optim_lib.adamw_update
+    else:
+        ocfg = opt_cfg or optim_lib.AdafactorConfig()
+        upd = optim_lib.adafactor_update
+
+    def step(model, opt_state, batch):
+        _check(model, cfg)
+        loss, grads = loss_and_grads(model, batch, microbatch=microbatch,
+                                     accum_dtype=accum_dtype,
+                                     remat_policy=remat_policy)
+        opt_state = upd(ocfg, grads, opt_state, model)
+        return opt_state, {"loss": loss}
+    return step
+
+
 def make_eval_step(cfg: ModelConfig) -> Callable:
     """step(model, batch) -> {"loss", "logits_mean"}; batch: dict(tokens,
     labels [, cross_source])."""
+    @torch.inference_mode()
     def step(model, batch):
         _check(model, cfg)
         logits = tfm.forward(model, batch["tokens"],
@@ -76,6 +151,7 @@ def make_eval_step(cfg: ModelConfig) -> Callable:
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     """Prefill: full forward returning last-position logits (B, V)."""
+    @torch.inference_mode()
     def step(model, batch):
         _check(model, cfg)
         logits = tfm.forward(model, batch["tokens"],
@@ -88,6 +164,7 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
     """Decode: one new token against a populated cache.
     step(model, cache, token, cross_source=None) -> (next token (B, 1)
     int32, logits (B, 1, V) float32, cache)."""
+    @torch.inference_mode()
     def step(model, cache, token, cross_source=None):
         _check(model, cfg)
         logits, cache = tfm.decode_step(model, token, cache,
@@ -95,3 +172,64 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok[:, None], logits, cache
     return step
+
+
+# ----------------------------------------------------------------------
+# abstract inputs (meta-device stand-ins; nothing is allocated)
+# ----------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec,
+                batch_override: Optional[int] = None) -> Dict[str, Any]:
+    """Meta-device stand-ins for every model input of this cell.
+
+    train/prefill: tokens (+labels for train) (B, S) int32; decode: token
+    (B, 1) + the KV/recurrent cache of length S (`init_cache` on the meta
+    device). Modality frontends are stubs: `cross_source` is the
+    precomputed patch/frame embedding sequence."""
+    B = batch_override or shape.global_batch
+    S = shape.seq_len
+    meta = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")
+    tok = torch.int32
+    specs: Dict[str, Any] = {}
+    if shape.kind == "train":
+        specs["tokens"] = meta((B, S), tok)
+        specs["labels"] = meta((B, S), tok)
+    elif shape.kind == "prefill":
+        specs["tokens"] = meta((B, S), tok)
+    else:   # decode
+        specs["token"] = meta((B, 1), tok)
+        specs["cache"] = tfm.init_cache(cfg, B, S, device="meta")
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    if cfg.family == "vlm":
+        specs["cross_source"] = meta((B, cfg.cross_source_len or 1600,
+                                      cfg.d_model), dt)
+    if cfg.is_enc_dec:
+        # decode consumes the encoded memory; train/prefill the stub frames
+        specs["cross_source"] = meta((B, cfg.cross_source_len or 1500,
+                                      cfg.d_model), dt)
+    return specs
+
+
+def abstract_params(cfg: ModelConfig, max_len: int = 0) -> tfm.Transformer:
+    """The model on the meta device: every parameter's shape and dtype,
+    nothing allocated (a 1T-parameter config included). Learned positions
+    get `max_len` rows (65,536 when 0), as the reference sizes them."""
+    need_pos = cfg.pos_embedding == "learned"
+    ml = max_len if max_len else 65536
+    return tfm.Transformer(cfg, None, ml if need_pos else 0)
+
+
+def abstract_opt_state(cfg_or_params, optimizer: str = "adamw"):
+    """The optimizer's state on the meta device, for a config or a model
+    (the model's own tensors are not touched). Its tensors have the
+    reference's leaf shapes (`train.optim`)."""
+    from ..train import optim as optim_lib
+    if isinstance(cfg_or_params, ModelConfig):
+        params = abstract_params(cfg_or_params)
+    else:
+        pos = cfg_or_params.pos
+        params = tfm.Transformer(cfg_or_params.cfg, None,
+                                 0 if pos is None else pos.pos.shape[0])
+    if optimizer == "adamw":
+        return optim_lib.adamw_init(optim_lib.AdamWConfig(), params)
+    return optim_lib.adafactor_init(optim_lib.AdafactorConfig(), params)

@@ -208,15 +208,18 @@ class RGLRU(nn.Module):
         d, dt = cfg.d_model, _dtype(cfg)
         dr = cfg.rnn_width or d
         # Lambda init so a = exp(-c*softplus(L)*r) sits in a useful range
-        lam = torch.rand((dr,), generator=g, device=g.device) * 0.5 + 0.4
-        lam = torch.log(torch.exp(-torch.log(lam) / _RG_C) - 1.0)
+        if g is None:
+            lam = torch.empty((dr,), device="meta")
+        else:
+            lam = torch.rand((dr,), generator=g, device=g.device) * 0.5 + 0.4
+            lam = torch.log(torch.exp(-torch.log(lam) / _RG_C) - 1.0)
         self.w_in = _normal(g, (d, dr), dt)
         self.w_gate = _normal(g, (d, dr), dt)
         self.conv = _normal(g, (cfg.conv1d_width, dr), dt)
         self.conv_b = _const((dr,), 0.0, dt, g)
         self.wa = _normal(g, (dr, dr), torch.float32)
         self.wxg = _normal(g, (dr, dr), torch.float32)
-        self.lam = nn.Parameter(lam, requires_grad=False)
+        self.lam = nn.Parameter(lam)
         self.w_out = _normal(g, (dr, d), dt)
 
     def _decay_inputs(self, u: torch.Tensor):

@@ -12,6 +12,10 @@ A cache is {"layers": [one per decoder layer]}: attention layers hold
 Python int, so the host knows every position without reading the device);
 recurrent layers hold their state tensors. `decode_step` updates the cache
 in place and returns it; `clone_cache` gives an independent copy.
+
+`forward` is the training and prefill pass: with autograd recording it
+checkpoints each repeated period of the depth plan (the reference's
+`jax.checkpoint` around its scanned body).
 """
 from __future__ import annotations
 
@@ -169,9 +173,11 @@ class Transformer(nn.Module):
     """The whole model: embedding (+ untied head, + learned positions),
     the decoder layers in depth order, the final norm and, for enc-dec
     configs, the encoder. Build it with `init_params`; run it with
-    `forward`, `encode` and `decode_step`."""
+    `forward`, `encode` and `decode_step`. Without a generator (`g=None`)
+    the parameters are built on the meta device (`model.abstract_params`).
+    """
 
-    def __init__(self, cfg: ModelConfig, g: torch.Generator,
+    def __init__(self, cfg: ModelConfig, g: Optional[torch.Generator],
                  max_len: int = 0):
         super().__init__()
         self.cfg = cfg
@@ -212,11 +218,59 @@ def encode(model: Transformer, frames: torch.Tensor) -> torch.Tensor:
     return model.encoder.final_norm(x)
 
 
+def no_multi_device(mesh=None, use_ep=False, act_sharding=None,
+                    ep_fsdp=False) -> None:
+    """Refuse the multi-device arguments of the reference's entry points
+    (`mesh`, `use_ep`, `act_sharding`, `ep_fsdp`)."""
+    if mesh is not None or use_ep or act_sharding is not None or ep_fsdp:
+        raise NotImplementedError(
+            "mesh, use_ep, act_sharding and ep_fsdp belong to the "
+            "multi-device training slice, which is not ported yet")
+
+
+def _saves_products(ctx, op, *args, **kwargs):
+    """The "dots" remat policy: keep the outputs of 2-D matrix products
+    (the weight products), recompute the rest — the counterpart of
+    `jax.checkpoint_policies.dots_with_no_batch_dims_saveable` (batched
+    products such as attention's and the experts' are recomputed)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(run, remat_policy: str):
+    """`run(x) -> x` under activation checkpointing: "full" keeps only
+    its input, "dots" also the weight products' outputs."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    if remat_policy == "dots":
+        return lambda x: checkpoint(
+            run, x, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(
+                _saves_products))
+    if remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {remat_policy!r}; expected "
+                         f"'full' or 'dots'")
+    return lambda x: checkpoint(run, x, use_reentrant=False)
+
+
 def forward(model: Transformer, tokens: torch.Tensor, *,
-            cross_source: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence forward (prefill). tokens (B, S) -> (B, S, V) float32
-    logits. Enc-dec configs take the stub frames as `cross_source` and
-    encode them here; VLM configs take the patch embeddings."""
+            cross_source: Optional[torch.Tensor] = None, mesh=None,
+            use_ep: bool = False, remat_scan: bool = True,
+            act_sharding=None, remat_policy: str = "full",
+            ep_fsdp: bool = False) -> torch.Tensor:
+    """Full-sequence forward (training / prefill). tokens (B, S) -> (B, S,
+    V) float32 logits. Enc-dec configs take the stub frames as
+    `cross_source` and encode them here; VLM configs take the patch
+    embeddings.
+
+    With `remat_scan` and autograd recording, each repeated period of the
+    depth plan (the reference's scanned body) runs under activation
+    checkpointing by `remat_policy` ("full" or "dots"); the prefix and
+    suffix layers do not, as in the reference. `mesh`, `use_ep`,
+    `act_sharding` and `ep_fsdp` belong to the multi-device slice."""
+    no_multi_device(mesh, use_ep, act_sharding, ep_fsdp)
     cfg = model.cfg
     B, S = tokens.shape
     x = model.embed(tokens)
@@ -225,8 +279,25 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     positions = torch.arange(S, device=tokens.device)
     if cfg.is_enc_dec:
         cross_source = encode(model, cross_source)
-    for blk in model.layers:
-        x, _ = blk(x, cross_source=cross_source, positions=positions)
+
+    def run(blocks):
+        def body(x):
+            for blk in blocks:
+                x, _ = blk(x, cross_source=cross_source, positions=positions)
+            return x
+        return body
+
+    plan = DepthPlan(cfg)
+    n_pre, period = len(plan.prefix), len(plan.period_kinds)
+    n_scan = plan.n_rep * period
+    layers = list(model.layers)
+    x = run(layers[:n_pre])(x)
+    remat = remat_scan and torch.is_grad_enabled() and any(
+        p.requires_grad for p in model.parameters())
+    for r in range(plan.n_rep):
+        body = run(layers[n_pre + r * period:n_pre + (r + 1) * period])
+        x = _checkpointed(body, remat_policy)(x) if remat else body(x)
+    x = run(layers[n_pre + n_scan:])(x)
     x = model.final_norm(x)
     return unembed_apply(model.embed, model.lm_head, x, cfg)
 
@@ -253,11 +324,14 @@ def clone_cache(cache: Cache) -> Cache:
                         for k, v in c.items()} for c in cache["layers"]]}
 
 
+@torch.inference_mode()
 def decode_step(model: Transformer, token: torch.Tensor, cache: Cache, *,
                 cross_source: Optional[torch.Tensor] = None,
                 pos: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
     """One-token decode. token: (B,1) integer. Returns ((B,1,V) float32
-    logits, cache), the cache updated in place.
+    logits, cache), the cache updated in place. Runs under
+    `torch.inference_mode()`: decoding records no graph, though the
+    parameters are trainable.
 
     For enc-dec models `cross_source` is the ALREADY-ENCODED memory (encode
     once at serve start, not per decode step)."""

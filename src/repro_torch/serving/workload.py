@@ -439,8 +439,11 @@ class LMDecodeWorkload(Workload):
                 device=self.device)
         return self._params
 
+    @torch.inference_mode()
     def _run_chunk_batch(self, data, states) -> LMChunkResult:
-        """Every real slot's chunk as a batch-1 decode chain."""
+        """Every real slot's chunk as a batch-1 decode chain, under
+        `torch.inference_mode()` (the model's parameters are trainable; no
+        graph is recorded)."""
         from ..models import transformer as tfm
 
         toks, lens, n_real = data

@@ -5,7 +5,10 @@ engine-pass kernel under `cuda_batched`, the tile-accumulation and
 blur-statistics kernels under `cuda`. The LM decode-serving path, which
 runs none of those kernels, decodes every SMOKE config on the card within
 the reference's bar of the CPU and serves chunks bitwise to its batch-1
-chain there.
+chain there. Single-card training: `f32_product`'s backward against the
+widened product, the bf16 embedding's backward summing a token's repeats
+in float32, one train step of every SMOKE config on the card against
+the CPU, and a bitwise checkpoint round trip on the card.
 
 Every test here is marked `gpu` and skips where there is no sm_90 card. The
 file imports no JAX (the card's machine has none); run it there with
@@ -863,3 +866,138 @@ def test_lm_served_chunks_are_bitwise_on_the_card(cuda):
     ex.close()
     assert torch.equal(inline.logits, worker.logits)
     assert torch.equal(inline.tokens, worker.tokens)
+
+
+# ---- single-card LM training (no CMAX kernel on it) ----
+
+
+def test_f32_product_backward_matches_the_widened_product(cuda):
+    """bf16 factors on the card: the forward is one cuBLAS product with a
+    float32 output, within the reference's f32 bar (rtol = atol = 1e-4,
+    tests/test_kernels.py:31) of the widened product; the backward gives
+    grad_x / grad_w in the factors' dtype within its bf16 bar (rtol = atol
+    = 0.05, tests/test_kernels.py:55) of the widened product's."""
+    from repro_torch.models.layers import f32_product
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((2, 32, 128), generator=g, device=cuda)
+    w = torch.randn((128, 256), generator=g, device=cuda) * 0.1
+    r = torch.randn((2, 32, 256), generator=g, device=cuda)
+    xb = x.to(torch.bfloat16).requires_grad_()
+    wb = w.to(torch.bfloat16).requires_grad_()
+    out = f32_product(xb, wb)
+    assert out.dtype == torch.float32 and out.shape == (2, 32, 256)
+    (out * r).sum().backward()
+    xw = xb.detach().float().requires_grad_()
+    ww = wb.detach().float().requires_grad_()
+    ref = xw @ ww
+    (ref * r).sum().backward()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    assert xb.grad.dtype == torch.bfloat16 and wb.grad.dtype == torch.bfloat16
+    torch.testing.assert_close(xb.grad.float(), xw.grad, rtol=0.05,
+                               atol=0.05)
+    torch.testing.assert_close(wb.grad.float(), ww.grad, rtol=0.05,
+                               atol=0.05)
+
+
+def test_embedding_backward_sums_repeated_tokens_in_f32(cuda):
+    """A bf16 table on the card, a batch where one token repeats 4,096
+    times: the lookup's gradient is each row's float64 sum rounded once to
+    bf16, within one bf16 rounding (relative L2 2**-8) of it. Advanced
+    indexing's backward, which rounds after every repeat, misses that."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.layers import Embedding
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                              dtype="bfloat16")
+    emb = Embedding(cfg, torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, 8, (8, 1024), generator=g, device=cuda,
+                           dtype=torch.int32)
+    tokens[:4] = 3
+    out = emb(tokens)
+    grad_out = torch.randn(out.shape, generator=g, device=cuda).to(
+        torch.bfloat16)
+    (got,) = torch.autograd.grad(out, emb.table, grad_out)
+    want = torch.zeros(emb.table.shape, dtype=torch.float64, device=cuda)
+    want.index_add_(0, tokens.flatten().long(),
+                    grad_out.double().reshape(-1, out.shape[-1]))
+    assert got.dtype == torch.bfloat16
+    rel = float((got.double() - want).norm() / want.norm())
+    assert rel <= 2.0 ** -8, rel
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """Each SMOKE config, built from one seed on the CPU and copied to the
+    card: the loss and every gradient of one step (remat "full"), and the
+    parameters after an AdamW update, within the reference's gradient bar
+    (rtol 5e-4, atol 5e-5; tests/test_pipeline_parallel.py:54-55)."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.lm import LMDataConfig, batches
+    from repro_torch.models import loss_and_grads
+    from repro_torch.models import transformer as tt
+    from repro_torch.train import optim
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    cpu = tt.init_params(cfg, torch.Generator().manual_seed(0), max_len=64,
+                         device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    toks, labels = next(batches(LMDataConfig(cfg.vocab_size, 16, 4)))
+    batch = {"tokens": toks, "labels": labels}
+    if cfg.family == "vlm" or cfg.is_enc_dec:
+        batch["cross_source"] = (np.random.default_rng(0).normal(
+            size=(4, cfg.cross_source_len, cfg.d_model)) * 0.1
+        ).astype(np.float32)
+    ocfg = optim.AdamWConfig(lr=1e-3, warmup_steps=1)
+    out = {}
+    for where, m in (("cpu", cpu), ("card", card)):
+        dev = next(m.parameters()).device
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        loss, grads = loss_and_grads(m, b)
+        optim.adamw_update(ocfg, grads, optim.adamw_init(ocfg, m), m)
+        out[where] = (loss.cpu(), {k: v.cpu() for k, v in grads.items()},
+                      {k: v.detach().cpu() for k, v in m.named_parameters()})
+    torch.testing.assert_close(out["card"][0], out["cpu"][0], rtol=5e-4,
+                               atol=5e-5)
+    for i in (1, 2):
+        for k, v in out["cpu"][i].items():
+            torch.testing.assert_close(out["card"][i][k], v, rtol=5e-4,
+                                       atol=5e-5, msg=f"{arch} {k}")
+
+
+def test_lm_checkpoint_round_trip_on_the_card_is_bitwise(cuda, tmp_path):
+    """A bf16 model and its AdamW state after one step, saved from the card
+    and restored onto it: every tensor the same bits, dtypes kept."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.lm import LMDataConfig, batches
+    from repro_torch.models import make_train_step
+    from repro_torch.models import transformer as tt
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optim
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                              dtype="bfloat16")
+    model = tt.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+    ocfg = optim.AdamWConfig(lr=1e-3, warmup_steps=1)
+    toks, labels = next(batches(LMDataConfig(cfg.vocab_size, 16, 4)))
+    state, _ = make_train_step(cfg, ocfg)(
+        model, optim.adamw_init(ocfg, model),
+        {"tokens": torch.as_tensor(toks, device=cuda),
+         "labels": torch.as_tensor(labels, device=cuda)})
+    tree = {"params": dict(model.named_parameters()), "opt_state": state}
+    ckpt.save(tmp_path, 1, tree, extra={"next_step": 1})
+    back, extra = ckpt.restore(tmp_path, tree, device=cuda)
+    assert extra == {"next_step": 1} and back["opt_state"].step == 1
+    dtypes = set()
+    for name, p in model.named_parameters():
+        got = back["params"][name]
+        assert got.is_cuda and got.dtype == p.dtype, name
+        assert torch.equal(got, p), name
+        dtypes.add(p.dtype)
+    # weights bf16, norm scales f32 (as the reference keeps them)
+    assert dtypes == {torch.bfloat16, torch.float32}
+    for field in ("mu", "nu"):
+        for k, v in getattr(state, field).items():
+            assert torch.equal(getattr(back["opt_state"], field)[k], v), k

@@ -42,6 +42,15 @@ from repro_torch.models.config import ModelConfig
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _inference_only():
+    """These are forward / decode parity checks: the parameters are
+    trainable, so record no graph (outputs convert with `.numpy()`)."""
+    with torch.no_grad():
+        yield
+
+
 RTOL, ATOL = 2e-2, 2e-3
 T = 8
 MAX_LEN = 64

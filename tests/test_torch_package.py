@@ -17,7 +17,8 @@ from repro_torch.kernels import _build
 SRC = os.path.dirname(os.path.dirname(os.path.abspath(repro_torch.__file__)))
 ROOT = os.path.dirname(SRC)
 EXTRA = [os.path.join(ROOT, "examples", f"torch_{n}.py")
-         for n in ("quickstart", "serve_batch", "adaptive_vs_fixed")] + [
+         for n in ("quickstart", "serve_batch", "adaptive_vs_fixed",
+                   "lm_pretrain", "fault_tolerant_train")] + [
     os.path.join(ROOT, "scripts", "check_torch_profiles.py")]
 
 
@@ -59,6 +60,10 @@ def test_every_module_imports_without_jax_or_the_reference():
                 "repro_torch.models.layers", "repro_torch.models.moe",
                 "repro_torch.models.recurrent",
                 "repro_torch.models.transformer", "repro_torch.models.model",
+                "repro_torch.models.leaves", "repro_torch.train",
+                "repro_torch.train.optim", "repro_torch.train.checkpoint",
+                "repro_torch.train.ft", "repro_torch.train.loop",
+                "repro_torch.launch.train", "repro_torch.convert",
                 "repro_torch.configs", "repro_torch.configs.cmax_camel",
                 *[f"repro_torch.configs.{a}" for a in ARCH_IDS]):
         assert mod in names, mod
