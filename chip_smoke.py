@@ -111,7 +111,27 @@ paper's size, and times the kernels. Phases:
                 --smoke --steps 8`, in a checkpoint directory emptied
                 before the phase and after it. The LM helpers of 11 and 12
                 run the served and checked models under
-                `torch.inference_mode()`.
+                `torch.inference_mode()`;
+ 13. train-dist multi-device training on an NCCL world of one rank (a TCP
+                rendezvous on 127.0.0.1, destroyed after the phase), no
+                CMAX kernel: llama3.2-1b trained as in 12 through
+                `train.loop.train` on a (1, 1) ("data", "model") grid with
+                FSDP, DTensor parameters and optimizer state: each loss
+                within rtol 5e-4 of 12's (bitwise or not, printed), ms per
+                step beside 12's, peak memory, one step's idle share under
+                `torch.profiler` and its collectives (`StepCommMode`). One
+                MoE layer of deepseek-moe-16b's published config (0.57 B
+                parameters) forward and backward on 8 x 1024 tokens
+                through `moe_apply_ep` against the dense `moe_apply`, in
+                bf16 (bar 0.05) and f32 (bar 2e-4). The elastic round trip
+                at llama3.2-1b's SMOKE size in bf16: the grid's step-3
+                checkpoint restored onto one card and onto the grid
+                bitwise, back again bitwise, and the single-card loop
+                resumed from it within rtol 5e-4 of the grid's losses
+                (checkpoints under build/train_dist, emptied before and
+                after). With two cards, `launch.train` under torchrun on
+                2 ranks; with one, a line saying why the multi-rank
+                arithmetic rests on the CPU tests.
 
 The second-to-last line is the `kernels` JSON object and the last line is
 {"ok": true, "device": {...}}. Any failed phase raises and the script exits
@@ -903,34 +923,44 @@ def train_full_width(cfg, counted, dev, card) -> dict:
     toks, labels = next(data)
     batch = {"tokens": torch.as_tensor(toks, device=dev),
              "labels": torch.as_tensor(labels, device=dev)}
+    out.update(profiled_step(lambda: step(model, state.opt_state,
+                                          state.comp_state, batch),
+                             state, ms, "train", card))
+    return out, model
+
+
+def profiled_step(run, state, ms, tag, card) -> dict:
+    """One more train step `run()` under `torch.profiler`: its device busy
+    time, the idle share against the unprofiled `ms` per step, kernel
+    launches and the costliest kernels. The step's new optimizer state
+    goes back into `state`."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        state.opt_state, state.comp_state, met = step(
-            model, state.opt_state, state.comp_state, batch)
+        state.opt_state, state.comp_state, met = run()
         float(met["loss"])
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
     kernels = kernel_events(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    out.update(profiled_ms=prof_ms,
+    out = dict(profiled_ms=prof_ms,
                launches_per_step=sum(e.count for e in kernels))
     if busy > 0:
         out.update(device_ms=busy, idle_share=1.0 - busy / ms)
         idle = f"{out['idle_share']:.3f}"
     else:
         idle = "not measured (the profiler saw no device time)"
-    print(f"[train] one step under torch.profiler: {prof_ms:.1f} ms, device "
+    print(f"[{tag}] one step under torch.profiler: {prof_ms:.1f} ms, device "
           f"busy {busy:.1f} ms, idle share {idle} (against the unprofiled "
           f"{ms:.1f} ms), {out['launches_per_step']} kernel launches; on "
           f"{card}")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total,
                     reverse=True)[:8]:
-        print(f"[train]   kernel {e.self_device_time_total / 1e3:9.2f} ms "
+        print(f"[{tag}]   kernel {e.self_device_time_total / 1e3:9.2f} ms "
               f"{e.count:6d} calls  {e.key[:80]}")
-    return out, model
+    return out
 
 
 def train_bf16_vs_f32(model, dev, card) -> dict:
@@ -1068,6 +1098,337 @@ def train_subprocesses(card):
     check("final loss" in outs["launch.train"][1], "launch.train printed "
           "no final loss")
     return {k: v[2] for k, v in outs.items()}
+
+
+DIST_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "train_dist")
+EP_TOL = 2e-4                # tests/test_sharding_subprocess.py:86-87
+MOE_ARCH = "deepseek-moe-16b"
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dist_full_width(cfg, grid, counted, dev, card, single) -> dict:
+    """Phase 13, full width: `cfg` trained as in [train] (the same seed,
+    batches, optimizer, remat, microbatches and steps) through
+    `train.loop.train` on `grid`, a ("data", "model") grid of (1, 1) in the
+    world of one rank, with FSDP: the parameters and the optimizer state
+    are DTensors. Each loss within rtol 5e-4 of [train]'s (`single`); ms
+    per step beside [train]'s; peak memory; one more step under the
+    profiler and one under `StepCommMode` (collectives per step)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data import lm as lm_data
+    from repro_torch.sharding import distribute_batch
+    from repro_torch.sharding.comms import StepCommMode
+    from repro_torch.train import loop
+
+    tc = loop.TrainConfig(steps=TRAIN_STEPS, ckpt_dir=os.path.join(
+        DIST_DIR, "full"), ckpt_every=0, log_every=1, seed=0,
+        optimizer="adamw", microbatch=TRAIN_MICRO, fsdp=True)
+    data = lm_data.batches(lm_data.LMDataConfig(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    hist = loop.train(cfg, tc, grid, data, max_len=TRAIN_SEQ)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    check(all(n == 0 for n in launches.values()),
+          f"distributed training launched a CMAX kernel: {launches}")
+    state = hist["state"]
+    model = state.params
+    check(all(isinstance(p, DTensor) for p in model.parameters())
+          and all(isinstance(v, DTensor) for v in state.opt_state.mu.values()),
+          "the parameters and moments are not all DTensors")
+    losses, want = np.array(hist["loss"]), np.array(single["losses"])
+    check(len(losses) == TRAIN_STEPS and np.all(np.isfinite(losses)),
+          f"losses {losses}")
+    rel = np.abs(losses - want) / np.abs(want)
+    bitwise = bool(np.array_equal(losses, want))
+    ms = float(np.median(hist["step_time"][1:])) * 1e3
+    out = dict(losses=hist["loss"], loss_rel=rel.tolist(),
+               losses_bitwise=bitwise,
+               step_ms=[t * 1e3 for t in hist["step_time"]],
+               ms_per_step=ms, single_ms_per_step=single["ms_per_step"],
+               ratio=ms / single["ms_per_step"], peak_gb=peak / 1e9,
+               single_peak_gb=single["peak_gb"], wall_s=wall)
+    print(f"[train-dist] {cfg.name} {cfg.dtype} on a (1, 1) ('data', "
+          f"'model') grid, NCCL world of 1, FSDP, DTensor parameters and "
+          f"moments; {TRAIN_STEPS} steps in {wall:.2f} s: losses "
+          f"{[round(x, 6) for x in hist['loss']]} against [train]'s "
+          f"{[round(x, 6) for x in single['losses']]}: largest relative "
+          f"difference {rel.max():.3e} (rtol {G_RTOL}), "
+          f"{'bitwise' if bitwise else 'not bitwise'}; on {card}")
+    check(bool(np.allclose(losses, want, rtol=G_RTOL, atol=0.0)),
+          f"losses {losses} differ from [train]'s {want}")
+    print(f"[train-dist] {ms:.1f} ms per step (median of steps 2-"
+          f"{TRAIN_STEPS}; each {[round(x) for x in out['step_ms']]} ms) "
+          f"against [train]'s {single['ms_per_step']:.1f} ms "
+          f"({out['ratio']:.3f}x); peak memory {out['peak_gb']:.2f} GB "
+          f"against {single['peak_gb']:.2f} GB; on {card}")
+
+    step = loop.make_step(cfg, tc, grid)
+    mesh = next(model.parameters()).device_mesh
+
+    def batch():
+        toks, labels = next(data)
+        return distribute_batch({"tokens": torch.as_tensor(toks, device=dev),
+                                 "labels": torch.as_tensor(labels,
+                                                           device=dev)},
+                                mesh)
+    b = batch()
+    out.update(profiled_step(lambda: step(model, state.opt_state,
+                                          state.comp_state, b),
+                             state, ms, "train-dist", card))
+    b = batch()
+    with StepCommMode() as comm:
+        state.opt_state, state.comp_state, met = step(
+            model, state.opt_state, state.comp_state, b)
+        float(met["loss"])
+    out["collectives_per_step"] = comm.counts()
+    print(f"[train-dist] collectives in one step (StepCommMode): "
+          f"{out['collectives_per_step']} ({comm.get_total_counts()} in "
+          f"all); on {card}")
+    return out
+
+
+def dist_moe_layer(mesh, dev, card) -> dict:
+    """Phase 13: one MoE layer of deepseek-moe-16b's published config (64
+    routed experts top-6 of moe_d_ff 1408, 2 shared, d_model 2048, from a
+    seeded generator on the card), forward and backward on 8 x 1024
+    tokens: `moe_apply_ep` over `mesh` (experts as DTensors placed by the
+    reference's specs with FSDP) against the dense `moe_apply`, at the same
+    capacity. In the published bf16 and in an f32 copy: output and every
+    gradient within rtol / atol 2e-4 (an f32 bar) in f32, and within the
+    reference's bf16 bar (0.05, tests/test_kernels.py:55) in bf16, where
+    the input's gradient sums each token's pairs and shared experts in
+    bf16 (one rounding of 2**-7 at magnitude 1 when the sums meet in
+    another order); whether each is bitwise; ms of each path (forward and
+    backward, the host's pace)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import settle
+    from repro_torch.models.moe import MoE, capacity_of, moe_apply, \
+        moe_apply_ep
+    from repro_torch.sharding import place, port_layout, to_placements
+    from repro_torch.sharding.comms import StepCommMode
+    published = get_config(MOE_ARCH)
+    check((published.d_model, published.n_experts,
+           published.experts_per_token, published.moe_d_ff,
+           published.n_shared_experts, published.dtype)
+          == (2048, 64, 6, 1408, 2, "bfloat16"),
+          f"{MOE_ARCH} is not its published config")
+    whole = [Replicate()] * mesh.ndim
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    cap = capacity_of(published, B * S)
+    out = dict(capacity=cap)
+    for dtype, tol in (("bfloat16", 0.05), ("float32", EP_TOL)):
+        cfg = dataclasses.replace(published, dtype=dtype)
+        dense = MoE(cfg, torch.Generator(device=dev).manual_seed(0))
+        ep = MoE(cfg, torch.Generator(device=dev).manual_seed(0))
+        specs, _ = port_layout({f"layers.1.moe.{n}": p for n, p in
+                                ep.named_parameters()}, cfg, mesh, fsdp=True)
+        for name, p in list(ep.named_parameters()):
+            owner = ep.shared if name.startswith("shared.") else ep
+            d = place(p.detach(), mesh,
+                      to_placements(specs[f"layers.1.moe.{name}"], mesh))
+            setattr(owner, name.rpartition(".")[2], torch.nn.Parameter(d))
+        g = torch.Generator(device=dev).manual_seed(1)
+        x = (torch.randn((B, S, cfg.d_model), generator=g, device=dev)
+             * 0.5).to(dense.wg.dtype)
+        ct = torch.randn(x.shape, generator=g, device=dev)
+        xd = x.clone().requires_grad_(True)
+        xe = DTensor.from_local(x.clone(), mesh, whole,
+                                run_check=False).requires_grad_(True)
+        ct_e = DTensor.from_local(ct, mesh, whole, run_check=False)
+
+        def run_dense():
+            o = moe_apply(dense, xd, cfg, capacity=cap)
+            return o, torch.autograd.grad((o.float() * ct).sum(),
+                                          [xd, *dense.parameters()])
+
+        def run_ep():
+            o = settle(moe_apply_ep(ep, xe, cfg, mesh, capacity=cap,
+                                    fsdp_axis="data"))
+            return o, torch.autograd.grad((o.float() * ct_e).sum(),
+                                          [xe, *ep.parameters()])
+
+        (od, gd), (oe, ge) = run_dense(), run_ep()
+        names = ["output", "x"] + [n for n, _ in dense.named_parameters()]
+        worst, bitwise = 0.0, True
+        for n, a, b in zip(names, [oe, *ge], [od, *gd]):
+            a = a.full_tensor() if isinstance(a, DTensor) else a
+            err = float((a.float() - b.float()).abs().max())
+            worst = max(worst, err)
+            bitwise = bitwise and bool(torch.equal(a, b))
+            check(bool(torch.allclose(a.float(), b.float(), rtol=tol,
+                                      atol=tol)),
+                  f"{dtype} moe_apply_ep's {n} differs from the dense "
+                  f"path's by {err} (bar {tol})")
+        del od, gd, oe, ge
+        ms_dense = cuda_ms(run_dense, reps=3, warmup=1, hold=False)
+        ms_ep = cuda_ms(run_ep, reps=3, warmup=1, hold=False)
+        with StepCommMode() as comm:
+            run_ep()
+        n_params = sum(p.numel() for p in dense.parameters())
+        out[dtype] = dict(max_abs_err=worst, bar=tol, bitwise=bitwise,
+                          dense_ms=ms_dense, ep_ms=ms_ep,
+                          collectives=comm.counts())
+        print(f"[train-dist] {MOE_ARCH} MoE layer ({n_params} parameters, "
+              f"{dtype}, capacity {cap}) on {B} x {S} tokens, forward and "
+              f"backward: moe_apply_ep over the world of 1 against "
+              f"moe_apply, output and every gradient within {tol}: largest "
+              f"difference {worst:.3e}, "
+              f"{'bitwise' if bitwise else 'not bitwise'}; {ms_ep:.2f} ms "
+              f"against {ms_dense:.2f} ms dense; collectives "
+              f"{comm.counts()}; on {card}")
+        del dense, ep, xd, xe
+        torch.cuda.empty_cache()
+    out["n_params"] = n_params
+    return out
+
+
+def dist_elastic(grid, dev, card) -> dict:
+    """Phase 13: the elastic round trip, at llama3.2-1b's SMOKE size in
+    bf16 (a full-width checkpoint is 12.4 GB through numpy's zlib). Six
+    steps on `grid` with FSDP write checkpoints at steps 3 and 6. Step 3
+    restored onto one card equals it restored onto the grid, bitwise;
+    written again from the card and restored onto the grid, bitwise again;
+    and the single-card loop resumed from it trains steps 4-6 within rtol
+    5e-4 of the grid's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import lm as lm_data
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import loop
+
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                              dtype="bfloat16")
+    root = os.path.join(DIST_DIR, "elastic")
+    data = lambda: lm_data.batches(lm_data.LMDataConfig(cfg.vocab_size, 64,
+                                                        8, seed=0))
+    kw = dict(steps=6, ckpt_every=3, log_every=0, seed=0, lr=1e-3)
+    gtc = loop.TrainConfig(ckpt_dir=os.path.join(root, "grid"), fsdp=True,
+                           **kw)
+    hist = loop.train(cfg, gtc, grid, data(), max_len=64)
+    check(sorted(ckpt.committed_steps(gtc.ckpt_dir)) == [3, 6],
+          f"grid checkpoints {ckpt.committed_steps(gtc.ckpt_dir)}")
+
+    def whole(tree):
+        from repro_torch.train.checkpoint import _flatten
+        return {k: v.full_tensor() if hasattr(v, "full_tensor") else v
+                for k, v in _flatten(tree).items()}
+
+    def same(a, b):
+        return a.keys() == b.keys() and all(
+            (torch.equal(a[k], b[k]) and a[k].dtype == b[k].dtype)
+            if isinstance(a[k], torch.Tensor) else a[k] == b[k] for k in a)
+
+    stc = loop.TrainConfig(ckpt_dir=os.path.join(root, "single"), **kw)
+    one = loop.checkpoint_tree(loop.init_state(cfg, stc, dev, 64))
+    on_grid = loop.checkpoint_tree(loop.init_state(cfg, gtc, grid, 64))
+    a, extra = ckpt.restore(gtc.ckpt_dir, one, step=3, device=dev)
+    b, _ = ckpt.restore(gtc.ckpt_dir, on_grid, step=3,
+                        shardings=ckpt.shardings_of(on_grid))
+    grid_to_card = same(whole(a), whole(b))
+    check(grid_to_card, "the grid's step-3 checkpoint differs on one card")
+    ckpt.save(stc.ckpt_dir, 3, a, extra=extra)
+    c, _ = ckpt.restore(stc.ckpt_dir, on_grid,
+                        shardings=ckpt.shardings_of(on_grid))
+    card_to_grid = same(whole(c), whole(b))
+    check(card_to_grid, "the card's checkpoint differs on the grid")
+    rest = data()
+    for _ in range(3):          # the grid's steps 1-3 took these batches
+        next(rest)
+    resumed = loop.train(cfg, stc, dev, rest, max_len=64)
+    rel = np.abs(np.array(resumed["loss"]) - np.array(hist["loss"][3:])) \
+        / np.abs(np.array(hist["loss"][3:]))
+    check(len(resumed["loss"]) == 3 and bool(np.all(rel <= G_RTOL)),
+          f"the resumed single-card losses {resumed['loss']} differ from "
+          f"the grid's {hist['loss'][3:]}")
+    print(f"[train-dist] elastic ({cfg.name} SMOKE, bf16): the grid's step-3 "
+          f"checkpoint restored onto one card and onto the grid, bitwise "
+          f"{grid_to_card}; written from the card and restored onto the "
+          f"grid, bitwise {card_to_grid}; the single-card loop resumed at "
+          f"step {extra['next_step']} trains steps 4-6 within "
+          f"{rel.max():.3e} of the grid's losses; on {card}")
+    return dict(grid_to_card=grid_to_card, card_to_grid=card_to_grid,
+                resumed_loss_rel=float(rel.max()))
+
+
+def dist_two_cards(single, card) -> dict:
+    """Phase 13 with two or more cards: `launch.train` under torchrun on
+    two ranks (an NCCL world of 2, a (2, 1) grid with FSDP) at [train]'s
+    settings; its final loss within rtol 5e-4 of [train]'s. With one card
+    it prints why the multi-rank arithmetic rests on the CPU tests."""
+    if torch.cuda.device_count() < 2:
+        print(f"[train-dist] one card: a world of 2 would need a second "
+              f"(NCCL refuses two ranks on one GPU), so the multi-rank "
+              f"arithmetic rests on the CPU tests over gloo "
+              f"(tests/test_torch_dist_train.py, "
+              f"tests/test_torch_dist_parts.py); on {card}")
+        return {"ranks": 1}
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.join(root, "src")}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+           "--arch", "llama3.2-1b", "--fsdp", "--seq", str(TRAIN_SEQ),
+           "--batch", str(TRAIN_BATCH), "--microbatch", str(TRAIN_MICRO),
+           "--steps", str(TRAIN_STEPS), "--ckpt-every", "0", "--ckpt",
+           os.path.join(DIST_DIR, "two")]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, env=env, cwd=root, capture_output=True,
+                       text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(p.returncode == 0, f"torchrun on 2 cards failed:\n"
+          f"{(p.stdout + p.stderr)[-3000:]}")
+    m = re.search(r"final loss ([0-9.]+)", p.stdout)
+    check(m is not None, "torchrun on 2 cards printed no final loss")
+    last = float(m.group(1))
+    want = single["losses"][-1]
+    print(f"[train-dist] 2 cards, (2, 1) grid with FSDP: final loss {last} "
+          f"against [train]'s {want:.4f}, {wall:.1f} s; on {card}")
+    check(abs(last - want) <= G_RTOL * abs(want) + 5e-5,
+          f"2-card final loss {last} differs from {want}")
+    return {"ranks": 2, "final_loss": last, "wall_s": wall}
+
+
+def train_dist_phase(cfg, counted, dev, card, single) -> dict:
+    """Phase 13: multi-device training on a world of one rank over NCCL
+    (a TCP rendezvous on 127.0.0.1), destroyed at the end: the full-width
+    run, the MoE layer through `moe_apply_ep`, the elastic round trip and,
+    with two cards, a world of 2. Checkpoints go to build/train_dist,
+    emptied before and after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import device_mesh, init_distributed, \
+        make_mesh
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    init_distributed("nccl" if dev.type == "cuda" else "gloo",
+                     f"tcp://127.0.0.1:{free_port()}", 0, 1)
+    try:
+        grid = make_mesh((1, 1), ("data", "model"), [dev])
+        out = dist_full_width(cfg, grid, counted, dev, card, single)
+        torch.cuda.empty_cache()
+        out["moe"] = dist_moe_layer(device_mesh(grid), dev, card)
+        torch.cuda.empty_cache()
+        out["elastic"] = dist_elastic(grid, dev, card)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+    out["two_cards"] = dist_two_cards(single, card)
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    return out
 
 
 def serve_phase(cfg, seqs, counted, dev, card):
@@ -1865,6 +2226,13 @@ def main() -> int:
     train["phase_s"] = time.perf_counter() - t_train
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     print(f"[train] {json.dumps(train)}")
+    torch.cuda.empty_cache()
+
+    # ---- 13. multi-device training on a world of 1 (no CMAX kernel) ----
+    t_dist = time.perf_counter()
+    dist_out = train_dist_phase(lm_cfg, counted, dev, card, train)
+    dist_out["phase_s"] = time.perf_counter() - t_dist
+    print(f"[train-dist] {json.dumps(dist_out)}")
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

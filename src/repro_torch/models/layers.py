@@ -94,11 +94,66 @@ def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     products are exact in float32)."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return x @ w
+    if x.is_cuda and is_dtensor(x):
+        return _sharded_f32_product(x, w)
     if x.is_cuda:
         lead = x.shape[:-1]
         out = _F32Product.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*lead, w.shape[1])
     return x.float() @ w.float()
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def plain(t: torch.Tensor) -> torch.Tensor:
+    """The whole of a DTensor as a plain tensor (a collective its mesh
+    joins); any other tensor as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def settle(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor with every pending (`Partial`) sum reduced, so that it is
+    `Replicate` on those mesh dimensions; any other tensor as it is."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if not isinstance(x, DTensor) or not any(
+            isinstance(p, Partial) for p in x.placements):
+        return x
+    return x.redistribute(placements=[
+        Replicate() if isinstance(p, Partial) else p for p in x.placements])
+
+
+def _sharded_f32_product(x, w):
+    """`f32_product` of DTensors on the card. DTensor has no sharding rule
+    for the float32-output product (`aten.mm.dtype`), so it runs on the
+    local shards: `w` is gathered along its contracting dimension (the
+    FSDP shard), its output columns stay sharded (vocab-parallel logits),
+    and `x` keeps its batch shards and is replicated where `w`'s columns
+    are sharded. Each local gradient is declared for what it is: a partial
+    sum where the other factor's shards split the contraction of the
+    backward product."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = x.device_mesh
+    lead = x.ndim - 1
+    w_pl = [p if p == Shard(1) else Replicate() for p in w.placements]
+    x_pl = [Replicate() if wp == Shard(1) or not (
+        isinstance(xp, Shard) and xp.dim < lead) else xp
+        for xp, wp in zip(x.placements, w_pl)]
+    x_loc = x.redistribute(placements=x_pl).to_local(grad_placements=[
+        Partial() if wp == Shard(1) else xp for xp, wp in zip(x_pl, w_pl)])
+    w_loc = w.redistribute(placements=w_pl).to_local(grad_placements=[
+        Partial() if isinstance(xp, Shard) else wp
+        for xp, wp in zip(x_pl, w_pl)])
+    out = _F32Product.apply(x_loc.reshape(-1, x_loc.shape[-1]), w_loc)
+    out = out.reshape(*x_loc.shape[:-1], w_loc.shape[1])
+    shape = torch.Size((*x.shape[:-1], w.shape[1]))
+    return DTensor.from_local(
+        out, mesh, [Shard(lead) if wp == Shard(1) else xp
+                    for xp, wp in zip(x_pl, w_pl)],
+        run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
 
 
 # ----------------------------------------------------------------------
@@ -147,7 +202,52 @@ class Embedding(nn.Module):
         self.table = _normal(g, (cfg.vocab_size, cfg.d_model), _dtype(cfg))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        if is_dtensor(self.table):
+            return _sharded_lookup(tokens, self.table)
         return F.embedding(tokens, self.table)
+
+
+def _vocab_shard(mesh, placements, vocab: int):
+    """(mesh dim, first id, rows) of the vocab shard that `placements`
+    give this rank on dim 0 (None, 0, vocab where no dim of more than one
+    rank shards it)."""
+    from torch.distributed.tensor import Shard
+    for i, p in enumerate(placements):
+        if p == Shard(0) and mesh.size(i) > 1:
+            rows = vocab // mesh.size(i)
+            return i, mesh.get_local_rank(i) * rows, rows
+    return None, 0, vocab
+
+
+def _sharded_lookup(tokens, table):
+    """`F.embedding` of a DTensor table, Megatron's vocab-parallel lookup
+    on local shards: the table's d_model (FSDP) shards are gathered, its
+    vocab shard kept; each rank looks up the ids in its shard (the others
+    give zero rows), and a sum over the vocab's mesh dim completes every
+    row. DTensor's own rule for a vocab-sharded table leaves a masked
+    partial sum whose backward torch 2.11 cannot redistribute. The local
+    lookup keeps `F.embedding`'s backward, which sums a token's repeats in
+    float32. Returns the rows with the tokens' batch shards."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from ..sharding.comms import all_sum
+    mesh = table.device_mesh
+    t_pl = [p if p == Shard(0) else Replicate() for p in table.placements]
+    tok_pl = [Shard(0) if p == Shard(0) and tp != Shard(0) else Replicate()
+              for p, tp in zip(tokens.placements, t_pl)]
+    ids = tokens.redistribute(placements=tok_pl).to_local()
+    # a rank's table gradient covers its own batch rows only
+    local = table.redistribute(placements=t_pl).to_local(grad_placements=[
+        Partial() if p == Shard(0) else tp for p, tp in zip(tok_pl, t_pl)])
+    dim, first, rows = _vocab_shard(mesh, t_pl, table.shape[0])
+    if dim is None:
+        out = F.embedding(ids, local)
+    else:
+        mine = (ids >= first) & (ids < first + rows)
+        out = F.embedding(torch.where(mine, ids - first, 0), local) \
+            * mine[..., None].to(local.dtype)
+        out = all_sum(out, mesh.get_group(dim))
+    return DTensor.from_local(out, mesh, tok_pl, run_check=False)
 
 
 class LMHead(nn.Module):
@@ -297,6 +397,85 @@ def local_mask(Sq: int, Sk: int, window: int, offset: int = 0,
     return ((kj <= qi) & (kj > qi - window))[None]
 
 
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            cfg: ModelConfig, kind: str,
+            positions: Optional[torch.Tensor]) -> torch.Tensor:
+    """Attention without a cache: RoPE (not for cross attention), then the
+    query-chunked or the masked softmax. (B, Sq, H, Dh) out."""
+    Sq, Sk, dev = q.shape[1], k.shape[1], q.device
+    pos_q = torch.arange(Sq, device=dev) if positions is None else positions
+    if cfg.pos_embedding == "rope" and kind != "cross":
+        q = apply_rope(q, pos_q, cfg)
+        k = apply_rope(k, pos_q, cfg)
+    if cfg.attn_q_chunk and kind in ("causal", "local") \
+            and Sq > cfg.attn_q_chunk and Sq % cfg.attn_q_chunk == 0:
+        return _sdpa_chunked(q, k, v, cfg, kind, cfg.attn_q_chunk)
+    if kind == "causal":
+        mask = causal_mask(Sq, Sk, device=dev)
+    elif kind == "local":
+        mask = local_mask(Sq, Sk, cfg.local_window, device=dev)
+    else:   # full / cross
+        mask = None
+    return _sdpa(q, k, v, mask)
+
+
+def _sharded_attention(p: Attention, x, kv_x, cfg: ModelConfig, kind: str,
+                       positions: Optional[torch.Tensor]):
+    """`attention_apply` of DTensor activations, Megatron-style: each rank
+    attends with its own heads of its own batch rows, on local tensors.
+
+    The projections run as DTensors (the weights' FSDP and TP shards are
+    DTensor's to resolve); q, k and v are then placed with the batch over
+    the data-parallel axes and the heads over "model" where the head count
+    divides it (the reference's divisibility rule), and taken local. No
+    DTensor op runs inside: DTensor has no sharding rule for einsum's
+    flattening of a batch dim and a head dim that are both sharded, and
+    RoPE and the masks are plain tensors. Where the KV heads stay whole
+    but the query heads are split, a rank keeps the KV heads its query
+    heads read, and its share of their gradient is a partial sum. The
+    output comes back as a DTensor with the query's placements for the
+    row-parallel `wo`."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    hd, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    dp = [i for i, n in enumerate(names) if n in ("pod", "data")]
+    rows = x.shape[0] % math.prod(mesh.size(i) for i in dp) == 0
+
+    def placements(heads):
+        return [Shard(0) if i in dp and rows else
+                Shard(2) if n == "model" and heads % mesh.size(i) == 0
+                else Replicate() for i, n in enumerate(names)]
+
+    q_pl, kv_pl = placements(H), placements(Hkv)
+    kv_grad = [Partial() if qp == Shard(2) and kp != Shard(2) else kp
+               for qp, kp in zip(q_pl, kv_pl)]
+
+    def project(inp, w, b, pl, grad_pl=None):
+        t = inp @ w
+        if cfg.qkv_bias:
+            t = t + b.flatten()
+        t = t.redistribute(placements=pl).to_local(grad_placements=grad_pl)
+        return t.unflatten(-1, (t.shape[-1] // hd, hd))
+
+    q = project(x, p.wq, getattr(p, "bq", None), q_pl)
+    k = project(kv_x, p.wk, getattr(p, "bk", None), kv_pl, kv_grad)
+    v = project(kv_x, p.wv, getattr(p, "bv", None), kv_pl, kv_grad)
+    hq = q.shape[2]
+    if k.shape[2] == Hkv and hq != H:
+        # whole KV heads, this rank's query heads [r*hq, (r+1)*hq)
+        g = H // Hkv
+        r = mesh.get_local_rank(names.index("model"))
+        kv = (r * hq + torch.arange(hq, device=q.device)) // g
+        if hq % g == 0 or g % hq == 0:
+            k, v = (t[:, :, int(kv[0]):int(kv[-1]) + 1] for t in (k, v))
+        else:
+            k, v = k[:, :, kv], v[:, :, kv]
+    out = _attend(q, k, v, cfg, kind, positions).flatten(-2)
+    out = DTensor.from_local(out, mesh, q_pl, run_check=False)
+    return out @ p.wo
+
+
 def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                     kv_source: Optional[torch.Tensor] = None,
                     kind: str = "causal",
@@ -307,58 +486,47 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     suffix (decode: Sq=1): keys/values are written at cache['idx'] (the
     start clamped into the buffer, as `dynamic_update_slice` clamps it) or,
     for a ring cache (local attention, a 'pos' entry), at idx % window.
-    Returns (out, cache) with the same cache dict, updated in place."""
+    Returns (out, cache) with the same cache dict, updated in place. DTensor
+    activations (no cache) run `_sharded_attention`."""
     B, Sq, _ = x.shape
     dev = x.device
     kv_x = kv_source if kv_source is not None else x
+    if cache is None and is_dtensor(x):
+        return _sharded_attention(p, x, kv_x, cfg, kind, positions), cache
     q, k, v = _qkv(p, x, kv_x, cfg)
+    if cache is None or kind == "cross":
+        return _attend(q, k, v, cfg, kind, positions).flatten(-2) @ p.wo, \
+            cache
 
     pos_q = torch.arange(Sq, device=dev) if positions is None else positions
-    if cfg.pos_embedding == "rope" and kind != "cross":
+    if cfg.pos_embedding == "rope":
         q = apply_rope(q, pos_q, cfg)
         k = apply_rope(k, pos_q, cfg)
-
-    if cache is not None and kind != "cross":
-        idx = cache["idx"]
-        qi = idx + torch.arange(Sq, device=dev)[:, None]
-        if "pos" in cache:
-            # ring-buffer cache for local attention: O(window) memory, the
-            # key to sub-quadratic long-context decode (long_500k)
-            W = cache["k"].shape[1]
-            if Sq != 1:
-                raise ValueError("ring cache supports single-token decode")
-            slot = idx % W
-            cache["k"][:, slot:slot + 1] = k
-            cache["v"][:, slot:slot + 1] = v
-            cache["pos"][slot] = idx
-            kp = cache["pos"][None, :]                 # global key positions
-            m = (kp >= 0) & (kp <= qi) & (kp > qi - cfg.local_window)
-        else:
-            Sk = cache["k"].shape[1]
-            start = min(max(idx, 0), Sk - Sq)
-            cache["k"][:, start:start + Sq] = k
-            cache["v"][:, start:start + Sq] = v
-            kj = torch.arange(Sk, device=dev)[None, :]
-            m = kj <= qi
-            if kind == "local" and cfg.local_window:
-                m = m & (kj > qi - cfg.local_window)
-        cache["idx"] = idx + Sq
-        k, v = cache["k"], cache["v"]
-        mask = m[None]
+    idx = cache["idx"]
+    qi = idx + torch.arange(Sq, device=dev)[:, None]
+    if "pos" in cache:
+        # ring-buffer cache for local attention: O(window) memory, the
+        # key to sub-quadratic long-context decode (long_500k)
+        W = cache["k"].shape[1]
+        if Sq != 1:
+            raise ValueError("ring cache supports single-token decode")
+        slot = idx % W
+        cache["k"][:, slot:slot + 1] = k
+        cache["v"][:, slot:slot + 1] = v
+        cache["pos"][slot] = idx
+        kp = cache["pos"][None, :]                 # global key positions
+        m = (kp >= 0) & (kp <= qi) & (kp > qi - cfg.local_window)
     else:
-        Sk = k.shape[1]
-        if cfg.attn_q_chunk and kind in ("causal", "local") \
-                and Sq > cfg.attn_q_chunk and Sq % cfg.attn_q_chunk == 0:
-            out = _sdpa_chunked(q, k, v, cfg, kind, cfg.attn_q_chunk)
-            return out.flatten(-2) @ p.wo, cache
-        if kind == "causal":
-            mask = causal_mask(Sq, Sk, device=dev)
-        elif kind == "local":
-            mask = local_mask(Sq, Sk, cfg.local_window, device=dev)
-        else:   # full / cross
-            mask = None
-
-    out = _sdpa(q, k, v, mask)
+        Sk = cache["k"].shape[1]
+        start = min(max(idx, 0), Sk - Sq)
+        cache["k"][:, start:start + Sq] = k
+        cache["v"][:, start:start + Sq] = v
+        kj = torch.arange(Sk, device=dev)[None, :]
+        m = kj <= qi
+        if kind == "local" and cfg.local_window:
+            m = m & (kj > qi - cfg.local_window)
+    cache["idx"] = idx + Sq
+    out = _sdpa(q, cache["k"], cache["v"], m[None])
     return out.flatten(-2) @ p.wo, cache
 
 

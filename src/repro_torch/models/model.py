@@ -7,19 +7,23 @@ Each factory takes the config the step is for and returns a step over a
 model of that config; a model of another config is refused. The eval,
 prefill and serve steps run under `torch.inference_mode()` (no graph is
 recorded, though the parameters are trainable); the train step updates
-the model's parameters in place. The multi-device arguments (`mesh`,
-`use_ep`, `act_sharding`, `ep_fsdp`) belong to the multi-device slice and
-raise `NotImplementedError`.
+the model's parameters in place. On a model with DTensor parameters
+(`sharding.distribute_model`) and a DTensor batch the steps run sharded;
+`mesh`, `dp_axes`, `use_ep`, `act_sharding` and `ep_fsdp` are
+`transformer.forward`'s. The loss and the metrics come back as plain
+tensors, the gradients with their parameters' placements.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from . import transformer as tfm
 from .config import ModelConfig
+from .layers import is_dtensor, plain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,12 +56,65 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
 
 def loss_fn(logits: torch.Tensor, labels: torch.Tensor,
             z_loss: float = 1e-4) -> torch.Tensor:
-    """Token-mean cross entropy with z-loss, computed in float32."""
+    """Token-mean cross entropy with z-loss, computed in float32. DTensor
+    logits take `_sharded_loss`."""
+    if is_dtensor(logits):
+        return _sharded_loss(logits, labels, z_loss)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     true = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     ce = lse - true
     return ce.mean() + z_loss * (lse ** 2).mean()
+
+
+def _sharded_loss(logits, labels, z_loss: float) -> torch.Tensor:
+    """`loss_fn` of DTensor logits (B, S, V) on local shards, the vocab
+    parallel as Megatron computes it: where the vocab is sharded, the
+    logsumexp takes a max, a sum of exponentials and the picked label's
+    logit, each summed (the max reduced) over the vocab's mesh dim; the
+    per-token terms are then summed over the token shards and divided by
+    the global token count (equal shards: the mean of means). DTensor's
+    own pick of a label from sharded logits leaves a masked partial sum
+    whose backward torch 2.11 cannot redistribute. Returns a plain scalar,
+    the same on every rank."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..sharding.comms import all_sum
+    from .layers import _vocab_shard
+    mesh = logits.device_mesh
+    lead = logits.ndim - 1
+    pl = [p if p == Shard(lead) or (isinstance(p, Shard) and p.dim < lead)
+          else Replicate() for p in logits.placements]
+    lg = logits.redistribute(placements=pl).to_local().float()
+    lab = labels.redistribute(placements=[
+        p if isinstance(p, Shard) and p.dim < lead else Replicate()
+        for p in pl]).to_local().long()
+    dim, first, rows = _vocab_shard(mesh, [
+        Shard(0) if p == Shard(lead) else Replicate() for p in pl],
+        logits.shape[-1])
+    if dim is None:
+        lse = torch.logsumexp(lg, dim=-1)
+        true = torch.gather(lg, -1, lab[..., None])[..., 0]
+    else:
+        group = mesh.get_group(dim)
+        m = lg.detach().amax(-1, keepdim=True)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        lse = torch.log(all_sum(torch.exp(lg - m).sum(-1), group)) + m[..., 0]
+        mine = (lab >= first) & (lab < first + rows)
+        picked = torch.gather(lg, -1, torch.where(mine, lab - first,
+                                                  0)[..., None])[..., 0]
+        true = all_sum(picked * mine, group)
+    ce = lse - true
+    shards = [i for i, p in enumerate(pl) if isinstance(p, Shard)
+              and p.dim < lead and mesh.size(i) > 1]     # token shards
+    if not shards:
+        return ce.mean() + z_loss * (lse ** 2).mean()
+    sums = torch.stack([ce.sum(), (lse ** 2).sum()])
+    for i in shards:
+        sums = all_sum(sums, mesh.get_group(i))
+    n = math.prod(logits.shape[:-1])
+    return sums[0] / n + z_loss * (sums[1] / n)
 
 
 def _check(model: tfm.Transformer, cfg: ModelConfig) -> None:
@@ -66,36 +123,57 @@ def _check(model: tfm.Transformer, cfg: ModelConfig) -> None:
                          f"{model.cfg.name!r} (or another variant)")
 
 
+def _microbatches(v: torch.Tensor, m: int):
+    """`v` split into `m` microbatches along its first axis: contiguous
+    row blocks, as on one device. A DTensor batch is gathered (token ids:
+    a few KiB) and each block is sharded again as `v` is."""
+    if not is_dtensor(v):
+        return list(v.reshape(m, v.shape[0] // m, *v.shape[1:]))
+    from ..sharding.rules import place
+    full = v.full_tensor()
+    b = full.shape[0] // m
+    return [place(full[i * b:(i + 1) * b], v.device_mesh, v.placements)
+            for i in range(m)]
+
+
 def loss_and_grads(model: tfm.Transformer, batch: Dict[str, torch.Tensor],
                    *, microbatch: int = 1,
                    accum_dtype: torch.dtype = torch.float32,
-                   remat_policy: str = "full"
+                   remat_policy: str = "full", mesh=None,
+                   dp_axes: Tuple[str, ...] = ("data",),
+                   use_ep: bool = False, act_sharding=None,
+                   ep_fsdp: bool = False
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, {parameter name: gradient}) of `loss_fn(forward(...))` on
     `batch`. With `microbatch` > 1 the batch splits along its first axis,
     each part's gradients are added in `accum_dtype`, and the summed loss
     and gradients are divided by `microbatch` (the reference's scan over
-    microbatches). A parameter the loss does not reach gets zeros."""
+    microbatches). A parameter the loss does not reach gets zeros.
+
+    On DTensor parameters each gradient is reduced onto its parameter's
+    placements (an all-reduce over the data-parallel axes, a
+    reduce-scatter where the parameter is sharded), once per microbatch;
+    the loss is the global token mean, read whole."""
     names, params = zip(*model.named_parameters())
+    fwd = dict(remat_policy=remat_policy, mesh=mesh, dp_axes=dp_axes,
+               use_ep=use_ep, act_sharding=act_sharding, ep_fsdp=ep_fsdp)
 
     def one(b):
         logits = tfm.forward(model, b["tokens"],
-                             cross_source=b.get("cross_source"),
-                             remat_policy=remat_policy)
+                             cross_source=b.get("cross_source"), **fwd)
         loss = loss_fn(logits, b["labels"])
         grads = torch.autograd.grad(loss, params, allow_unused=True,
                                     materialize_grads=True)
-        return loss.detach(), grads
+        grads = [g.redistribute(placements=p.placements) if is_dtensor(g)
+                 else g for g, p in zip(grads, params)]
+        return plain(loss.detach()), grads
 
     if microbatch <= 1:
         loss, grads = one(batch)
         return loss, dict(zip(names, grads))
-    parts = {k: v.reshape(microbatch, v.shape[0] // microbatch,
-                          *v.shape[1:]) for k, v in batch.items()}
-    dev = batch["tokens"].device
-    loss = torch.zeros((), device=dev)
-    acc = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
-           for p in params]
+    parts = {k: _microbatches(v, microbatch) for k, v in batch.items()}
+    loss = 0.0
+    acc = [torch.zeros_like(p, dtype=accum_dtype) for p in params]
     for i in range(microbatch):
         l, g = one({k: v[i] for k, v in parts.items()})
         loss = loss + l
@@ -106,19 +184,20 @@ def loss_and_grads(model: tfm.Transformer, batch: Dict[str, torch.Tensor],
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg=None, *, mesh=None,
+                    dp_axes: Tuple[str, ...] = ("data",),
                     use_ep: bool = False, act_sharding=None,
                     optimizer: str = "adamw", remat_policy: str = "full",
                     microbatch: int = 1, ep_fsdp: bool = False,
                     accum_dtype: torch.dtype = torch.float32) -> Callable:
     """Returns step(model, opt_state, batch) -> (opt_state, metrics),
     which updates the model's parameters in place. batch: dict(tokens,
-    labels [, cross_source]) on the model's device.
+    labels [, cross_source]) on the model's device (DTensors for a
+    distributed model).
 
     microbatch > 1 splits the global batch and accumulates gradients in
     `accum_dtype`: activation memory scales down ~1/microbatch while the
     arithmetic is unchanged."""
     from ..train import optim as optim_lib
-    tfm.no_multi_device(mesh, use_ep, act_sharding, ep_fsdp)
     if optimizer == "adamw":
         ocfg = opt_cfg or optim_lib.AdamWConfig()
         upd = optim_lib.adamw_update
@@ -128,34 +207,44 @@ def make_train_step(cfg: ModelConfig, opt_cfg=None, *, mesh=None,
 
     def step(model, opt_state, batch):
         _check(model, cfg)
-        loss, grads = loss_and_grads(model, batch, microbatch=microbatch,
-                                     accum_dtype=accum_dtype,
-                                     remat_policy=remat_policy)
+        loss, grads = loss_and_grads(
+            model, batch, microbatch=microbatch, accum_dtype=accum_dtype,
+            remat_policy=remat_policy, mesh=mesh, dp_axes=dp_axes,
+            use_ep=use_ep, act_sharding=act_sharding, ep_fsdp=ep_fsdp)
         opt_state = upd(ocfg, grads, opt_state, model)
         return opt_state, {"loss": loss}
     return step
 
 
-def make_eval_step(cfg: ModelConfig) -> Callable:
+def make_eval_step(cfg: ModelConfig, *, mesh=None,
+                   dp_axes: Tuple[str, ...] = ("data",),
+                   use_ep: bool = False) -> Callable:
     """step(model, batch) -> {"loss", "logits_mean"}; batch: dict(tokens,
     labels [, cross_source])."""
     @torch.inference_mode()
     def step(model, batch):
         _check(model, cfg)
         logits = tfm.forward(model, batch["tokens"],
-                             cross_source=batch.get("cross_source"))
-        return {"loss": loss_fn(logits, batch["labels"]),
-                "logits_mean": logits.mean()}
+                             cross_source=batch.get("cross_source"),
+                             mesh=mesh, dp_axes=dp_axes, use_ep=use_ep)
+        return {"loss": plain(loss_fn(logits, batch["labels"])),
+                "logits_mean": plain(logits.mean())}
     return step
 
 
-def make_prefill_step(cfg: ModelConfig) -> Callable:
-    """Prefill: full forward returning last-position logits (B, V)."""
+def make_prefill_step(cfg: ModelConfig, *, mesh=None,
+                      dp_axes: Tuple[str, ...] = ("data",),
+                      use_ep: bool = False, act_sharding=None,
+                      ep_fsdp: bool = False) -> Callable:
+    """Prefill: full forward returning last-position logits (B, V) (a
+    DTensor on a distributed model)."""
     @torch.inference_mode()
     def step(model, batch):
         _check(model, cfg)
         logits = tfm.forward(model, batch["tokens"],
-                             cross_source=batch.get("cross_source"))
+                             cross_source=batch.get("cross_source"),
+                             mesh=mesh, dp_axes=dp_axes, use_ep=use_ep,
+                             act_sharding=act_sharding, ep_fsdp=ep_fsdp)
         return logits[:, -1]
     return step
 

@@ -15,7 +15,12 @@ in place and returns it; `clone_cache` gives an independent copy.
 
 `forward` is the training and prefill pass: with autograd recording it
 checkpoints each repeated period of the depth plan (the reference's
-`jax.checkpoint` around its scanned body).
+`jax.checkpoint` around its scanned body). On a model whose parameters are
+DTensors (`sharding.distribute_model`) and a DTensor batch it runs
+sharded: DTensor's sharding propagation stands in for the reference's
+GSPMD, `use_ep` routes the MoE layers through `moe.moe_apply_ep` over
+`mesh`, and `act_sharding` (DTensor placements) redistributes the
+inter-layer activation.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from . import recurrent as rec
 from .config import ModelConfig
 from .layers import (Attention, Embedding, FFN, LearnedPositions, LMHead,
                      Norm, _dtype, attention_apply, unembed_apply)
-from .moe import MoE
+from .moe import MoE, moe_apply_ep
 
 Cache = Dict[str, object]
 
@@ -92,9 +97,12 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, *,
                 cross_source: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None,
-                cache: Optional[Cache] = None
+                cache: Optional[Cache] = None, mesh=None,
+                dp_axes: Tuple[str, ...] = ("data",), use_ep: bool = False,
+                ep_fsdp: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
-        """Returns (x, cache) — the same cache dict, updated."""
+        """Returns (x, cache) — the same cache dict, updated. With
+        `use_ep` and a `mesh`, a MoE layer runs expert-parallel."""
         kind, cfg = self.kind, self.cfg
         if kind in ("attn", "local", "attn_dense", "moe", "cross"):
             akind = "local" if kind == "local" else "causal"
@@ -106,7 +114,11 @@ class Block(nn.Module):
                 h, _ = attention_apply(self.xattn, self.lnx(x), cfg,
                                        kv_source=cross_source, kind="cross")
                 x = x + h
-            if kind == "moe":
+            if kind == "moe" and use_ep and mesh is not None:
+                x = x + moe_apply_ep(self.moe, self.ln2(x), cfg, mesh,
+                                     dp_axes=dp_axes,
+                                     fsdp_axis="data" if ep_fsdp else None)
+            elif kind == "moe":
                 x = x + self.moe(self.ln2(x))
             else:
                 x = x + self.ffn(self.ln2(x))
@@ -218,16 +230,6 @@ def encode(model: Transformer, frames: torch.Tensor) -> torch.Tensor:
     return model.encoder.final_norm(x)
 
 
-def no_multi_device(mesh=None, use_ep=False, act_sharding=None,
-                    ep_fsdp=False) -> None:
-    """Refuse the multi-device arguments of the reference's entry points
-    (`mesh`, `use_ep`, `act_sharding`, `ep_fsdp`)."""
-    if mesh is not None or use_ep or act_sharding is not None or ep_fsdp:
-        raise NotImplementedError(
-            "mesh, use_ep, act_sharding and ep_fsdp belong to the "
-            "multi-device training slice, which is not ported yet")
-
-
 def _saves_products(ctx, op, *args, **kwargs):
     """The "dots" remat policy: keep the outputs of 2-D matrix products
     (the weight products), recompute the rest — the counterpart of
@@ -257,9 +259,10 @@ def _checkpointed(run, remat_policy: str):
 
 def forward(model: Transformer, tokens: torch.Tensor, *,
             cross_source: Optional[torch.Tensor] = None, mesh=None,
-            use_ep: bool = False, remat_scan: bool = True,
-            act_sharding=None, remat_policy: str = "full",
-            ep_fsdp: bool = False) -> torch.Tensor:
+            dp_axes: Tuple[str, ...] = ("data",), use_ep: bool = False,
+            remat_scan: bool = True, act_sharding=None,
+            remat_policy: str = "full", ep_fsdp: bool = False
+            ) -> torch.Tensor:
     """Full-sequence forward (training / prefill). tokens (B, S) -> (B, S,
     V) float32 logits. Enc-dec configs take the stub frames as
     `cross_source` and encode them here; VLM configs take the patch
@@ -268,14 +271,22 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     With `remat_scan` and autograd recording, each repeated period of the
     depth plan (the reference's scanned body) runs under activation
     checkpointing by `remat_policy` ("full" or "dots"); the prefix and
-    suffix layers do not, as in the reference. `mesh`, `use_ep`,
-    `act_sharding` and `ep_fsdp` belong to the multi-device slice."""
-    no_multi_device(mesh, use_ep, act_sharding, ep_fsdp)
+    suffix layers do not, as in the reference.
+
+    `mesh` (a `DeviceMesh`) is read only by the MoE layers under `use_ep`
+    (`moe_apply_ep` over `dp_axes` and "model", the experts' d_model
+    gathered over "data" with `ep_fsdp`), as in the reference.
+    `act_sharding`, DTensor placements, redistributes the inter-layer
+    activation after the embedding and after each repeated period (the
+    reference's sharding constraint on its scan carry)."""
     cfg = model.cfg
     B, S = tokens.shape
+    wsc = (lambda t: t.redistribute(placements=act_sharding)) \
+        if act_sharding is not None else (lambda t: t)
     x = model.embed(tokens)
     if model.pos is not None:
         x = x + model.pos.pos[None, :S]
+    x = wsc(x)
     positions = torch.arange(S, device=tokens.device)
     if cfg.is_enc_dec:
         cross_source = encode(model, cross_source)
@@ -283,7 +294,9 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     def run(blocks):
         def body(x):
             for blk in blocks:
-                x, _ = blk(x, cross_source=cross_source, positions=positions)
+                x, _ = blk(x, cross_source=cross_source, positions=positions,
+                           mesh=mesh, dp_axes=dp_axes, use_ep=use_ep,
+                           ep_fsdp=ep_fsdp)
             return x
         return body
 
@@ -296,7 +309,7 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
         p.requires_grad for p in model.parameters())
     for r in range(plan.n_rep):
         body = run(layers[n_pre + r * period:n_pre + (r + 1) * period])
-        x = _checkpointed(body, remat_policy)(x) if remat else body(x)
+        x = wsc(_checkpointed(body, remat_policy)(x) if remat else body(x))
     x = run(layers[n_pre + n_scan:])(x)
     x = model.final_norm(x)
     return unembed_apply(model.embed, model.lm_head, x, cfg)

@@ -16,6 +16,14 @@ bfloat16). Writes go to a temp dir that is renamed when complete; `keep`
 rotates old checkpoints; `latest_step` scans the markers only, so the
 reference's `latest_step` / `committed_steps` read a directory written
 here.
+
+Elastic: a DTensor leaf is saved as its logical, whole tensor
+(`full_tensor()`, which every rank of its mesh joins), written once, by
+rank 0 of the world, so a checkpoint holds the same bytes whatever grid
+wrote it. `restore(..., shardings=)` places each leaf onto a (possibly
+other) grid: a tree of `(DeviceMesh, placements)` entries beside
+`tree_like`. A checkpoint of the single-device loop restores onto a grid,
+and one written on a grid restores onto one device.
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve
+from ..models.layers import plain
+from ..sharding.rules import place
 
 Tree = Any
 
@@ -38,18 +48,28 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def _flatten(tree: Tree, prefix: str = "") -> Dict[str, Any]:
+def _is_sharding(x) -> bool:
+    """A `(DeviceMesh, placements)` entry of a `shardings` tree."""
+    from torch.distributed.device_mesh import DeviceMesh
+    return isinstance(x, tuple) and len(x) == 2 and \
+        isinstance(x[0], DeviceMesh)
+
+
+def _flatten(tree: Tree, prefix: str = "",
+             is_leaf=lambda x: False) -> Dict[str, Any]:
     join = lambda k: f"{prefix}/{k}" if prefix else str(k)
     flat: Dict[str, Any] = {}
-    if isinstance(tree, dict):
+    if is_leaf(tree):
+        flat[prefix] = tree
+    elif isinstance(tree, dict):
         for k, v in tree.items():
-            flat.update(_flatten(v, join(k)))
+            flat.update(_flatten(v, join(k), is_leaf))
     elif _is_namedtuple(tree):
         for k in tree._fields:
-            flat.update(_flatten(getattr(tree, k), join(f".{k}")))
+            flat.update(_flatten(getattr(tree, k), join(f".{k}"), is_leaf))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            flat.update(_flatten(v, join(i)))
+            flat.update(_flatten(v, join(i), is_leaf))
     else:
         flat[prefix] = tree
     return flat
@@ -74,6 +94,11 @@ def _key_file(key: str) -> str:
     return hashlib.sha1(key.encode()).hexdigest()[:16] + ".npz"
 
 
+def _distributed() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
 def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
@@ -89,9 +114,18 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
 
 def save(ckpt_dir: str | Path, step: int, tree: Tree,
          extra: Optional[dict] = None, keep: int = 3) -> Path:
+    """Write `tree` as step `step`. In a started process group every rank
+    calls it (each DTensor leaf is gathered whole) and rank 0 writes; the
+    others wait until the checkpoint is committed."""
     ckpt_dir = Path(ckpt_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / f"step_{step:08d}"
+    writer = not _distributed() or torch.distributed.get_rank() == 0
+    if not writer:
+        for leaf in _flatten(tree).values():
+            plain(leaf)
+        torch.distributed.barrier()
+        return final
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
     tmp = ckpt_dir / f".tmp_step_{step:08d}"
     if tmp.exists():
         shutil.rmtree(tmp)
@@ -99,7 +133,7 @@ def save(ckpt_dir: str | Path, step: int, tree: Tree,
 
     manifest = {"step": step, "extra": extra or {}, "leaves": {}}
     for key, leaf in _flatten(tree).items():
-        arr, dtype = _to_numpy(leaf)
+        arr, dtype = _to_numpy(plain(leaf))
         fname = _key_file(key)
         np.savez_compressed(tmp / fname, arr=arr)
         manifest["leaves"][key] = {"shape": list(arr.shape),
@@ -114,6 +148,8 @@ def save(ckpt_dir: str | Path, step: int, tree: Tree,
     steps = sorted(committed_steps(ckpt_dir))
     for old in steps[:-keep]:
         shutil.rmtree(ckpt_dir / f"step_{old:08d}", ignore_errors=True)
+    if _distributed():
+        torch.distributed.barrier()
     return final
 
 
@@ -145,13 +181,26 @@ def _from_numpy(arr: np.ndarray, dtype: str, like, dev: torch.device):
     return t.to(dev)
 
 
+def shardings_of(tree: Tree) -> Tree:
+    """The `shardings` tree of `tree`: `(mesh, placements)` beside each
+    DTensor leaf, None beside any other."""
+    from torch.distributed.tensor import DTensor
+    return _unflatten(tree, {
+        k: (v.device_mesh, tuple(v.placements))
+        if isinstance(v, DTensor) else None
+        for k, v in _flatten(tree).items()})
+
+
 def restore(ckpt_dir: str | Path, tree_like: Tree,
-            step: Optional[int] = None, device: DeviceLike = None
-            ) -> Tuple[Tree, dict]:
+            step: Optional[int] = None, device: DeviceLike = None,
+            shardings: Optional[Tree] = None) -> Tuple[Tree, dict]:
     """Restore into the structure of `tree_like` (its tensors may be on
-    the meta device): each tensor leaf is cast to the dtype of its
-    `tree_like` leaf and placed on `device` (default: the card); an int
-    leaf comes back as an int. Returns (tree, extra)."""
+    the meta device or DTensors): each tensor leaf is cast to the dtype of
+    its `tree_like` leaf and placed on `device` (default: the card); an
+    int leaf comes back as an int. `shardings`, a tree beside `tree_like`
+    whose entries are `(DeviceMesh, placements)` (or None), places those
+    leaves as DTensors instead: every rank reads the whole leaf and keeps
+    its shard. Returns (tree, extra)."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -159,12 +208,24 @@ def restore(ckpt_dir: str | Path, tree_like: Tree,
             raise FileNotFoundError(f"no committed checkpoint in {ckpt_dir}")
     d = ckpt_dir / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
-    dev = resolve(device)
+    flat_like = _flatten(tree_like)
+    placed = _flatten(shardings, is_leaf=_is_sharding) \
+        if shardings is not None else {}
+    dev = None
     loaded = {}
-    for key, like in _flatten(tree_like).items():
+    for key, like in flat_like.items():
         ent = manifest["leaves"].get(key)
         if ent is None:
             raise KeyError(f"checkpoint missing leaf {key}")
         arr = np.load(d / ent["file"])["arr"]
-        loaded[key] = _from_numpy(arr, ent["dtype"], like, dev)
+        sharding = placed.get(key)
+        if sharding is not None and isinstance(like, torch.Tensor):
+            mesh, placements = sharding
+            t = _from_numpy(arr, ent["dtype"], like,
+                            torch.device(mesh.device_type))
+            loaded[key] = place(t, mesh, placements)
+        else:
+            if dev is None and not isinstance(like, int):
+                dev = resolve(device)
+            loaded[key] = _from_numpy(arr, ent["dtype"], like, dev)
     return _unflatten(tree_like, loaded), manifest["extra"]

@@ -1,18 +1,27 @@
-"""Fault-tolerant training loop on one device (counterpart of
-`repro.train.loop`).
+"""Fault-tolerant training loop (counterpart of `repro.train.loop`).
 
 Wires together: the train step (`models.model.loss_and_grads` and an
-optimizer of `train.optim`), checkpointing (save / restore / resume),
-straggler detection, failure retry, optional microbatch gradient
-accumulation and int8 gradient compression. This is the loop
-examples/torch_lm_pretrain.py and the chaos example drive;
-launch/train.py is its CLI.
+optimizer of `train.optim`), the sharding rules, checkpointing (save /
+restore / resume, elastic across grids), straggler detection, failure
+retry, optional microbatch gradient accumulation and int8 gradient
+compression. This is the loop examples/torch_lm_pretrain.py and the chaos
+example drive; launch/train.py is its CLI.
 
-It takes a device, or a `launch.mesh.DeviceGrid` of one entry. A grid of
-more entries, `fsdp` and `use_ep` belong to the multi-device slice and
-raise `NotImplementedError`. As in the reference, a restart rebuilds the
-state, resumes from the latest committed checkpoint's `next_step` and
-does not rewind the batch iterator.
+`mesh` is a device (or its name), a `launch.mesh.DeviceGrid`, or a
+`torch.distributed.device_mesh.DeviceMesh`. A device, or a grid of one
+entry with no process group started, trains on that device. Otherwise the
+loop runs one process per grid entry (`torchrun`; `launch.mesh.
+init_distributed`), every rank calling `train` alike: the parameters are
+DTensors placed by the reference's `param_specs` (DP over "pod" and
+"data", Megatron TP on "model", FSDP over "data" with `fsdp`), each batch
+is sharded by `batch_specs`, `use_ep` routes the MoE layers through
+`moe_apply_ep`, and the optimizer state is sharded as its parameters.
+Every rank draws the same whole model from `seed` on its device, as the
+single-device loop does, before placing it, so a grid of any shape
+starts from the single-device loop's numbers. As in the reference, a
+restart rebuilds the state, resumes from the latest committed
+checkpoint's `next_step` (restored onto the current grid, whatever grid
+wrote it) and does not rewind the batch iterator.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ from ..device import resolve
 from ..models import transformer as tfm
 from ..models.config import ModelConfig
 from ..models.model import loss_and_grads
+from ..sharding import distribute_batch, distribute_model, dp_axes_of
 from . import checkpoint as ckpt_lib
 from . import optim as optim_lib
 from .ft import FaultInjector, RetryPolicy, StragglerDetector
@@ -48,20 +58,28 @@ class TrainConfig:
     microbatch: int = 1                       # grad-accum splits
 
 
-def device_of(mesh, tc: Optional[TrainConfig] = None) -> torch.device:
-    """The one device the loop runs on: a device (or its name), or the
-    entry of a grid of one."""
-    if tc is not None and (tc.fsdp or tc.use_ep):
-        raise NotImplementedError(
-            "fsdp and use_ep belong to the multi-device training slice, "
-            "which is not ported yet")
+def _placement(mesh) -> Tuple[torch.device, Any]:
+    """(this process's device, the DeviceMesh to shard over or None) of
+    the loop's `mesh` argument."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ..launch.mesh import device_mesh
+    if isinstance(mesh, DeviceMesh):
+        dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
+            if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+        return dev, mesh
     if hasattr(mesh, "devices") and hasattr(mesh, "axis_names"):
+        if dist.is_available() and dist.is_initialized():
+            dm = device_mesh(mesh)
+            return resolve(mesh.devices.flat[dist.get_rank()]), dm
         if mesh.size != 1:
-            raise NotImplementedError(
-                f"a grid of {mesh.size} entries needs the multi-device "
-                f"training slice, which is not ported yet")
+            raise RuntimeError(
+                f"a grid of {mesh.size} entries trains one process per "
+                f"entry: start them with torchrun (or "
+                f"launch.mesh.init_distributed) before calling the loop")
         mesh = mesh.devices.flat[0]
-    return resolve(mesh)
+    return resolve(mesh), None
 
 
 def _optimizer(tc: TrainConfig):
@@ -79,12 +97,14 @@ def make_step(cfg: ModelConfig, tc: TrainConfig, mesh) -> Callable:
     carry the gradients' global norm, which its compiled step shares with
     AdamW's clipping; run eagerly here it would be a second pass over every
     gradient, and nothing reads it."""
-    device_of(mesh, tc)
+    _, dmesh = _placement(mesh)
+    dp = dp_axes_of(dmesh) if dmesh is not None else ("data",)
     ocfg, _, upd = _optimizer(tc)
 
     def step(model, opt_state, comp_state, batch):
         loss, grads = loss_and_grads(model, batch,
-                                     microbatch=tc.microbatch)
+                                     microbatch=tc.microbatch, mesh=dmesh,
+                                     dp_axes=dp, use_ep=tc.use_ep)
         if tc.grad_compression == "int8":
             grads, comp_state = optim_lib.compress_grads(grads, comp_state,
                                                          model)
@@ -105,10 +125,13 @@ class TrainState:
 def init_state(cfg: ModelConfig, tc: TrainConfig, mesh,
                max_len: int) -> TrainState:
     """A model drawn from a generator seeded `tc.seed` on the loop's
-    device, its optimizer state and (with compression) the residuals."""
-    dev = device_of(mesh, tc)
+    device (placed on the mesh by `param_specs(fsdp=tc.fsdp)` when there
+    is one), its optimizer state and (with compression) the residuals."""
+    dev, dmesh = _placement(mesh)
     g = torch.Generator(device=dev).manual_seed(tc.seed)
     model = tfm.init_params(cfg, g, max_len=max_len, device=dev)
+    if dmesh is not None:
+        distribute_model(model, dmesh, fsdp=tc.fsdp)
     ocfg, init, _ = _optimizer(tc)
     comp = optim_lib.compression_init(model) if tc.grad_compression \
         else None
@@ -130,7 +153,7 @@ def train(cfg: ModelConfig, tc: TrainConfig, mesh,
           ) -> Dict[str, Any]:
     """Run the fault-tolerant loop. Returns summary metrics (the
     reference's history) and, under "state", the final `TrainState`."""
-    dev = device_of(mesh, tc)
+    dev, dmesh = _placement(mesh)
     detector = StragglerDetector()
     retry = RetryPolicy()
     history: Dict[str, Any] = {"loss": [], "step_time": [],
@@ -142,8 +165,10 @@ def train(cfg: ModelConfig, tc: TrainConfig, mesh,
         state = init_state(cfg, tc, mesh, max_len)
         start = 0
         if ckpt_lib.latest_step(tc.ckpt_dir) is not None:
+            tree = checkpoint_tree(state)
             restored, extra = ckpt_lib.restore(
-                tc.ckpt_dir, checkpoint_tree(state), device=dev)
+                tc.ckpt_dir, tree, device=dev,
+                shardings=ckpt_lib.shardings_of(tree))
             with torch.no_grad():
                 for name, p in state.params.named_parameters():
                     p.copy_(restored["params"][name])
@@ -161,6 +186,8 @@ def train(cfg: ModelConfig, tc: TrainConfig, mesh,
             if extra_batch:
                 batch.update({k: torch.as_tensor(v, device=dev)
                               for k, v in extra_batch.items()})
+            if dmesh is not None:
+                batch = distribute_batch(batch, dmesh)
 
             if injector is not None:
                 injector.maybe_fail(step_idx)

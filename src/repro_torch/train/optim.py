@@ -18,6 +18,18 @@ its slice of its leaf through a view. A plain dict is one leaf per entry.
 Gradient compression: per-leaf symmetric int8 quantization with
 error-feedback accumulation of the quantization residual, applied to the
 gradients before the update (`train.loop`, `grad_compression="int8"`).
+
+On a distributed model (`sharding.distribute_model`: DTensor parameters,
+the gradients on their parameters' placements) the state tensors are
+DTensors too, placed by the model's per-leaf specs: AdamW's moments and
+the int8 residual as their parameter, Adafactor's factored moments as
+`sharding.adafactor_state_specs` gives them. Every reduction runs over the
+whole leaf, across shards: the clipping norm sums each gradient's pending
+(`Partial`) sum and reduces once per placement, the int8 scale is the
+max over every shard, and Adafactor runs on DTensors, so its row / column
+means and its RMS clip reduce across ranks. Elementwise work (AdamW,
+quantization) runs on each rank's local shard, where a parameter, its
+gradient and its state line up element for element.
 """
 from __future__ import annotations
 
@@ -28,6 +40,7 @@ from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from ..models.layers import is_dtensor
 from ..models.leaves import Leaf, identity_groups, leaf_groups
 
 Params = Union[nn.Module, Mapping[str, torch.Tensor]]
@@ -62,11 +75,34 @@ def _member(state: torch.Tensor, idx: Optional[int], shape) -> torch.Tensor:
     return (state if idx is None else state[idx]).view(shape)
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view of its storage); any other tensor
+    as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
 def _zeros_like_leaves(groups: Dict[str, Leaf], named, shape_fn,
-                       dtype) -> Tree:
+                       dtype, specs: Optional[Mapping] = None) -> Tree:
+    """Zeros of `shape_fn(leaf shape)` per leaf: DTensors placed by
+    `specs` (leaf key -> PartitionSpec) when given, else on the device of
+    the leaf's first member."""
+    if specs is not None:
+        from torch.distributed import tensor as dt
+
+        from ..sharding.rules import to_placements
+        mesh = next(iter(named.values())).device_mesh
+        return {key: dt.zeros(shape_fn(leaf.shape), dtype=dtype,
+                              device_mesh=mesh,
+                              placements=to_placements(specs[key], mesh))
+                for key, leaf in groups.items()}
     return {key: torch.zeros(shape_fn(leaf.shape), dtype=dtype,
-                             device=named[leaf.members[0][0]].device)
+                             device=_local(named[leaf.members[0][0]]).device)
             for key, leaf in groups.items()}
+
+
+def leaf_specs(params: Params) -> Optional[Mapping]:
+    """The per-leaf specs of a distributed model, else None."""
+    return getattr(params, "leaf_specs", None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,15 +130,25 @@ def _schedule(cfg: AdamWConfig, step: int) -> float:
 
 def _global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor, in float32 (a device
-    scalar: no host sync)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree.values()))
+    scalar: no host sync). Over DTensors each tensor's sum is a pending
+    (`Partial`) sum where the tensor is sharded and a whole one where it
+    is replicated: the sums of one placement are added as they are, and
+    each such total is reduced once, so every shard counts once."""
+    sums = [torch.sum(torch.square(x.float())) for x in tree.values()]
+    if not any(is_dtensor(x) for x in sums):
+        return torch.sqrt(sum(sums))
+    totals: Dict[object, torch.Tensor] = {}
+    for x in sums:
+        key = tuple(x.placements)
+        totals[key] = x if key not in totals else totals[key] + x
+    return torch.sqrt(sum(t.full_tensor() for t in totals.values()))
 
 
 def adamw_init(cfg: AdamWConfig, params: Params) -> AdamWState:
     dt = torch.bfloat16 if cfg.moment_dtype == "bfloat16" else torch.float32
     named, groups = named_params(params), groups_of(params)
-    z = lambda: _zeros_like_leaves(groups, named, lambda s: s, dt)
+    z = lambda: _zeros_like_leaves(groups, named, lambda s: s, dt,
+                                   leaf_specs(params))
     return AdamWState(step=0, mu=z(), nu=z())
 
 
@@ -120,10 +166,10 @@ def adamw_update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor],
     b2c = 1 - cfg.b2 ** float(step)
     for key, leaf in groups.items():
         for name, idx in leaf.members:
-            p = named[name]
-            m = _member(state.mu[key], idx, p.shape)
-            v = _member(state.nu[key], idx, p.shape)
-            g = grads[name].float() * scale
+            p = _local(named[name])
+            m = _member(_local(state.mu[key]), idx, p.shape)
+            v = _member(_local(state.nu[key]), idx, p.shape)
+            g = _local(grads[name]).float() * scale
             m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g
             v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
             delta = (m32 / b1c) / (torch.sqrt(v32 / b2c) + cfg.eps) \
@@ -163,10 +209,21 @@ def _cols(shape):
 
 def adafactor_init(cfg: AdafactorConfig, params: Params) -> AdafactorState:
     named, groups = named_params(params), groups_of(params)
+    specs = leaf_specs(params)
+    vr_specs = vc_specs = None
+    if specs is not None:
+        from ..sharding.rules import adafactor_state_specs
+        st = adafactor_state_specs(
+            AdafactorState(None, None, None), specs,
+            {k: leaf.shape for k, leaf in groups.items()},
+            next(iter(named.values())).device_mesh)
+        vr_specs, vc_specs = st.vr, st.vc
     return AdafactorState(
         step=0,
-        vr=_zeros_like_leaves(groups, named, _rows, torch.float32),
-        vc=_zeros_like_leaves(groups, named, _cols, torch.float32))
+        vr=_zeros_like_leaves(groups, named, _rows, torch.float32,
+                              vr_specs),
+        vc=_zeros_like_leaves(groups, named, _cols, torch.float32,
+                              vc_specs))
 
 
 def _spans_stack(leaf: Leaf) -> bool:
@@ -240,7 +297,7 @@ class CompressionState(NamedTuple):
 def compression_init(params: Params) -> CompressionState:
     named, groups = named_params(params), groups_of(params)
     return CompressionState(residual=_zeros_like_leaves(
-        groups, named, lambda s: s, torch.float32))
+        groups, named, lambda s: s, torch.float32, leaf_specs(params)))
 
 
 def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -267,15 +324,35 @@ def compress_grads(grads: Mapping[str, torch.Tensor], comp: CompressionState,
     groups = groups_of(params if params is not None else grads)
     out: Dict[str, torch.Tensor] = {}
     for key, leaf in groups.items():
-        res = comp.residual[key]
+        res = _local(comp.residual[key])
         g32: List[torch.Tensor] = []
         for name, idx in leaf.members:
-            r = _member(res, idx, grads[name].shape)
-            g32.append(grads[name].float() + r)
-        scale = torch.stack([x.abs().max() for x in g32]).max() / 127.0 \
-            + 1e-12
+            g = _local(grads[name])
+            g32.append(g.float() + _member(res, idx, g.shape))
+        peak = torch.stack([x.abs().max() for x in g32]).max()
+        g0 = grads[leaf.members[0][0]]
+        if is_dtensor(g0):
+            # the max over every shard of the leaf, one mesh dimension
+            # after the other (a replica's max is its peers')
+            import torch.distributed as dist
+            mesh = g0.device_mesh
+            for i in range(mesh.ndim):
+                dist.all_reduce(peak, op=dist.ReduceOp.MAX,
+                                group=mesh.get_group(i))
+        scale = peak / 127.0 + 1e-12
         for (name, idx), x in zip(leaf.members, g32):
             dq = dequantize_int8(_quantize(x, scale), scale)
             _member(res, idx, x.shape).copy_(x - dq)
-            out[name] = dq
+            out[name] = _like(dq, grads[name])
     return out, comp
+
+
+def _like(local: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """`local` as a shard of a DTensor placed as `ref`; as it is when
+    `ref` is a plain tensor."""
+    if not is_dtensor(ref):
+        return local
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, ref.device_mesh, ref.placements,
+                              run_check=False, shape=ref.shape,
+                              stride=ref.stride())

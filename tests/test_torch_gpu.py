@@ -8,7 +8,10 @@ the reference's bar of the CPU and serves chunks bitwise to its batch-1
 chain there. Single-card training: `f32_product`'s backward against the
 widened product, the bf16 embedding's backward summing a token's repeats
 in float32, one train step of every SMOKE config on the card against
-the CPU, and a bitwise checkpoint round trip on the card.
+the CPU, and a bitwise checkpoint round trip on the card. Multi-device
+training on an NCCL world of one rank: a SMOKE train step with DTensor
+parameters on a (1, 1) grid against the plain single-card step, and the
+expert-parallel MoE against the dense one.
 
 Every test here is marked `gpu` and skips where there is no sm_90 card. The
 file imports no JAX (the card's machine has none); run it there with
@@ -1001,3 +1004,143 @@ def test_lm_checkpoint_round_trip_on_the_card_is_bitwise(cuda, tmp_path):
     for field in ("mu", "nu"):
         for k, v in getattr(state, field).items():
             assert torch.equal(getattr(back["opt_state"], field)[k], v), k
+
+
+# ---- multi-device training on a world of 1 over NCCL ----
+
+
+@pytest.fixture(scope="module")
+def nccl_world(cuda):
+    """An NCCL world of one rank on cuda:0 (a FileStore rendezvous in a
+    temporary directory), destroyed after the module's tests."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed("nccl", f"file://{tmp}/rendezvous", 0, 1)
+        try:
+            yield cuda
+        finally:
+            dist.destroy_process_group()
+
+
+def test_dist_train_step_on_a_world_of_one_matches_the_card(nccl_world):
+    """A SMOKE train step (remat "full", 2 microbatches, AdamW) with the
+    parameters as DTensors on a (1, 1) ("data", "model") grid with FSDP:
+    the loss, every gradient and every updated parameter within the
+    reference's gradient bar (rtol 5e-4, atol 5e-5) of the plain
+    single-card step from the same parameters."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.lm import LMDataConfig, batches
+    from repro_torch.launch.mesh import device_mesh, make_mesh
+    from repro_torch.models import loss_and_grads
+    from repro_torch.models import transformer as tt
+    from repro_torch.sharding import distribute_batch, distribute_model
+    from repro_torch.train import optim
+    cuda = nccl_world
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = device_mesh(make_mesh((1, 1), ("data", "model"), [cuda]))
+    for arch in ("llama3.2-1b", "deepseek-moe-16b"):
+        cfg = get_smoke_config(arch)
+        one = tt.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+        grid = distribute_model(copy.deepcopy(one), mesh, fsdp=True)
+        toks, labels = next(batches(LMDataConfig(cfg.vocab_size, 16, 4)))
+        batch = {"tokens": torch.as_tensor(toks, device=cuda),
+                 "labels": torch.as_tensor(labels, device=cuda)}
+        ocfg = optim.AdamWConfig(lr=1e-3, warmup_steps=1)
+        out = {}
+        for where, m, b in (("card", one, batch),
+                            ("grid", grid, distribute_batch(batch, mesh))):
+            kw = dict(mesh=mesh, use_ep=bool(cfg.n_experts)) \
+                if where == "grid" else {}
+            loss, grads = loss_and_grads(m, b, microbatch=2, **kw)
+            optim.adamw_update(ocfg, grads, optim.adamw_init(ocfg, m), m)
+            whole = lambda t: (t.full_tensor() if hasattr(t, "full_tensor")
+                               else t).detach().cpu()
+            out[where] = (loss.cpu(), {k: whole(v) for k, v in grads.items()},
+                          {k: whole(v) for k, v in m.named_parameters()})
+        torch.testing.assert_close(out["grid"][0], out["card"][0], rtol=5e-4,
+                                   atol=5e-5)
+        for i in (1, 2):
+            for k, v in out["card"][i].items():
+                torch.testing.assert_close(out["grid"][i][k], v, rtol=5e-4,
+                                           atol=5e-5, msg=f"{arch} {k}")
+
+
+def test_moe_ep_on_a_world_of_one_matches_dense(nccl_world):
+    """deepseek-moe-16b's SMOKE MoE layer in bf16: `moe_apply_ep` over a
+    (1, 1) grid (experts as DTensors, FSDP) against `moe_apply` at the same
+    capacity, output and gradients within rtol / atol 2e-4
+    (tests/test_sharding_subprocess.py:86-87)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import device_mesh, make_mesh
+    from repro_torch.models.layers import settle
+    from repro_torch.models.moe import MoE, moe_apply, moe_apply_ep
+    from repro_torch.sharding import place, port_layout, to_placements
+    cuda = nccl_world
+    cfg = dataclasses.replace(get_smoke_config("deepseek-moe-16b"),
+                              dtype="bfloat16")
+    mesh = device_mesh(make_mesh((1, 1), ("data", "model"), [cuda]))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    dense_m, ep_m = MoE(cfg, g), MoE(cfg, g)
+    ep_m.load_state_dict(dense_m.state_dict())
+    specs, _ = port_layout({f"layers.1.moe.{n}": p for n, p in
+                            ep_m.named_parameters()}, cfg, mesh, fsdp=True)
+    for name, p in list(ep_m.named_parameters()):
+        owner = ep_m.shared if name.startswith("shared.") else ep_m
+        d = place(p.detach(), mesh,
+                  to_placements(specs[f"layers.1.moe.{name}"], mesh))
+        setattr(owner, name.rpartition(".")[2], torch.nn.Parameter(d))
+    x = (torch.randn((4, 16, cfg.d_model), generator=g, device=cuda) * 0.1
+         ).to(torch.bfloat16)
+    ct = torch.randn(x.shape, generator=g, device=cuda)
+    xd = x.clone().requires_grad_(True)
+    out = moe_apply(dense_m, xd, cfg)
+    (out.float() * ct).sum().backward()
+    xe = DTensor.from_local(x.clone(), mesh, [Replicate()] * 2,
+                            run_check=False).requires_grad_(True)
+    oute = settle(moe_apply_ep(ep_m, xe, cfg, mesh, fsdp_axis="data"))
+    (oute.float() * DTensor.from_local(ct, mesh, [Replicate()] * 2,
+                                       run_check=False)).sum().backward()
+    tol = dict(rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(oute.full_tensor().float(), out.float(), **tol)
+    torch.testing.assert_close(xe.grad.full_tensor().float(),
+                               xd.grad.float(), **tol)
+    for (n, p), q in zip(ep_m.named_parameters(), dense_m.parameters()):
+        torch.testing.assert_close(p.grad.full_tensor().float(),
+                                   q.grad.float(), msg=n, **tol)
+
+
+def test_moe_dispatch_backward_is_deterministic_in_bf16(cuda):
+    """A bf16 MoE layer on the card (top-6 of 64 experts): the input's
+    gradient, where each token's 6 pairs meet, is the same bits run to
+    run, and within relative L2 2e-2 of an f32 copy's (`chip_smoke.py`
+    [train]'s bf16 gradient bar)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import MoE, moe_apply
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), d_model=256,
+                              moe_d_ff=128, n_shared_experts=0)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    m = MoE(cfg, g)
+    x = (torch.randn((4, 256, cfg.d_model), generator=g, device=cuda)
+         ).to(torch.bfloat16)
+    ct = torch.randn(x.shape, generator=g, device=cuda)
+
+    def grad_x(model, inp):
+        inp = inp.clone().requires_grad_(True)
+        out = moe_apply(model, inp, cfg)
+        (gx,) = torch.autograd.grad((out.float() * ct).sum(), inp)
+        return gx
+    a, b = grad_x(m, x), grad_x(m, x)
+    assert torch.equal(a, b)
+    f32 = MoE(dataclasses.replace(cfg, dtype="float32"), g)
+    f32.load_state_dict({k: v.float() for k, v in m.state_dict().items()})
+    want = grad_x(f32, x.float())
+    rel = float((a.float() - want).norm() / want.norm())
+    assert rel <= 2e-2, rel

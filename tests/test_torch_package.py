@@ -64,6 +64,8 @@ def test_every_module_imports_without_jax_or_the_reference():
                 "repro_torch.train.optim", "repro_torch.train.checkpoint",
                 "repro_torch.train.ft", "repro_torch.train.loop",
                 "repro_torch.launch.train", "repro_torch.convert",
+                "repro_torch.sharding", "repro_torch.sharding.rules",
+                "repro_torch.sharding.comms", "repro_torch.train.pipeline",
                 "repro_torch.configs", "repro_torch.configs.cmax_camel",
                 *[f"repro_torch.configs.{a}" for a in ARCH_IDS]):
         assert mod in names, mod

@@ -114,13 +114,21 @@ def test_fault_injection_restarts_as_the_reference(tmp_path, capsys):
 
 
 def test_multi_device_arguments_are_refused():
+    """A grid of more entries than the started world (here: none) is
+    refused, since the loop runs one process per entry; `fsdp` and
+    `use_ep` on one device train as the single-device loop (nothing to
+    shard; EP over one shard is the dense dispatch)."""
     cfg = ModelConfig(**TINY)
     grid = p_mesh.make_smoke_mesh(2, model=1, device_type="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(RuntimeError, match="one process per entry"):
         p_loop.make_step(cfg, p_loop.TrainConfig(), grid)
+    base = p_loop.init_state(cfg, p_loop.TrainConfig(), "cpu", SEQ)
     for kw in (dict(fsdp=True), dict(use_ep=True)):
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            p_loop.init_state(cfg, p_loop.TrainConfig(**kw), "cpu", SEQ)
+        st = p_loop.init_state(cfg, p_loop.TrainConfig(**kw), "cpu", SEQ)
+        for (n, p), q in zip(st.params.named_parameters(),
+                             base.params.parameters()):
+            assert not hasattr(p, "device_mesh"), n
+            torch.testing.assert_close(p, q, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "whisper-tiny"])

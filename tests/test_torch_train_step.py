@@ -241,10 +241,16 @@ def test_train_step_matches_the_reference_step():
     got = on_reference_leaves(model, dict(model.named_parameters()))
     assert_grads_close(got, dict(_leaves(jax.tree.map(np.asarray, rparams),
                                          "")), "updated parameters")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        make_train_step(cfg, use_ep=True)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tt.forward(model, to_port(b)["tokens"], mesh=object())
+    # the multi-device arguments: `mesh` is read only by EP, as in the
+    # reference, and EP needs a mesh, so on one device they change nothing
+    tokens = to_port(b)["tokens"]
+    with torch.no_grad():
+        plain = tt.forward(model, tokens)
+        torch.testing.assert_close(tt.forward(model, tokens, mesh=object()),
+                                   plain, rtol=0, atol=0)
+        torch.testing.assert_close(tt.forward(model, tokens, use_ep=True),
+                                   plain, rtol=0, atol=0)
+    assert callable(make_train_step(cfg, use_ep=True))
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

@@ -1,0 +1,138 @@
+"""Multi-device training across ranks: the port's DP, FSDP, TP and EP
+train steps on a (2, 2) ("data", "model") grid, one process per rank,
+against the single-device loop on each rank's own device.
+
+    python3 tools/dist_check.py                       # 4 cards, NCCL
+    PYTHONPATH=src python tools/dist_check.py --device cpu   # 4 gloo ranks
+
+Each case trains a SMOKE config for 3 steps through `train.loop.train`
+(seq 16, global batch 4, lr 3e-3, the seeded token pipeline) on the grid
+and on one device, from the same seed; the losses and the updated
+parameters must agree at rtol 5e-4 / atol 5e-5
+(`tests/test_pipeline_parallel.py:54-55`), as in
+`tests/test_torch_dist_train.py`. The MoE config runs at capacity_factor
+E/k, where no token-expert pair is dropped on one device or on any EP
+shard. Rank 0 prints one line per case: the largest differences, the
+collectives of one more step (`sharding.comms.StepCommMode`) and the
+median ms per step of steps 2-3 on the grid and on one device. Exits
+non-zero if a case disagrees.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import socket
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "src"))
+
+RTOL, ATOL = 5e-4, 5e-5
+SEQ, BATCH, STEPS = 16, 4, 3
+CASES = [("llama3.2-1b", {}), ("llama3.2-1b", dict(fsdp=True)),
+         ("deepseek-moe-16b", dict(use_ep=True, fsdp=True))]
+
+
+def run(cfg, mesh, ckpt_dir, **kw):
+    from repro_torch.data.lm import LMDataConfig, batches
+    from repro_torch.train import loop
+    tc = loop.TrainConfig(steps=STEPS, ckpt_dir=ckpt_dir, ckpt_every=0,
+                          log_every=0, lr=3e-3, **kw)
+    it = batches(LMDataConfig(cfg.vocab_size, SEQ, BATCH))
+    hist = loop.train(cfg, tc, mesh, it, max_len=SEQ)
+    return hist, tc, it
+
+
+def rank_main(rank, world, init, device_type, tmp):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.sharding import distribute_batch
+    from repro_torch.sharding.comms import StepCommMode
+    from repro_torch.train import loop
+
+    torch.set_num_threads(1)
+    init_distributed("nccl" if device_type == "cuda" else "gloo", init,
+                     rank, world)
+    dev = torch.device("cuda", rank) if device_type == "cuda" \
+        else torch.device("cpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    devices = [f"cuda:{i}" for i in range(world)] \
+        if device_type == "cuda" else ["cpu"] * world
+    grid = make_mesh((2, 2), ("data", "model"), devices)
+    bad = []
+    try:
+        for arch, kw in CASES:
+            cfg = get_smoke_config(arch)
+            if cfg.n_experts:
+                cfg = dataclasses.replace(
+                    cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+            one, _, _ = run(cfg, dev, os.path.join(tmp, f"one{rank}"))
+            got, tc, it = run(cfg, grid, os.path.join(tmp, "grid"), **kw)
+            loss_err = float(np.max(np.abs(np.array(got["loss"])
+                                           - np.array(one["loss"]))))
+            ok = np.allclose(got["loss"], one["loss"], rtol=RTOL, atol=ATOL)
+            param_err = 0.0
+            want = dict(one["state"].params.named_parameters())
+            for n, p in got["state"].params.named_parameters():
+                a, b = p.full_tensor().detach(), want[n].detach()
+                param_err = max(param_err, float((a - b).abs().max()))
+                ok = ok and bool(torch.allclose(a, b, rtol=RTOL, atol=ATOL))
+            state = got["state"]
+            mesh = next(state.params.parameters()).device_mesh
+            toks, labels = next(it)
+            b = distribute_batch({"tokens": torch.as_tensor(toks, device=dev),
+                                  "labels": torch.as_tensor(labels,
+                                                            device=dev)},
+                                 mesh)
+            with StepCommMode() as comm:
+                loop.make_step(cfg, tc, grid)(state.params, state.opt_state,
+                                              state.comp_state, b)
+            if rank == 0:
+                print(json.dumps({
+                    "arch": arch, "grid": [2, 2], **kw, "ok": bool(ok),
+                    "loss_max_abs_err": loss_err,
+                    "param_max_abs_err": param_err,
+                    "collectives_per_step": comm.counts(),
+                    "grid_ms": float(np.median(got["step_time"][1:])) * 1e3,
+                    "one_device_ms": float(np.median(one["step_time"][1:]))
+                    * 1e3}), flush=True)
+            if not ok:
+                bad.append(arch)
+    finally:
+        torch.distributed.destroy_process_group()
+    if bad:
+        raise SystemExit(f"rank {rank}: {bad} disagree with one device")
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args()
+    world = 4
+    if args.device == "cuda" and torch.cuda.device_count() < world:
+        raise SystemExit(f"{world} cards needed, "
+                         f"{torch.cuda.device_count()} visible")
+    with tempfile.TemporaryDirectory() as tmp:
+        if args.device == "cuda":
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                init = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+        else:
+            init = f"file://{tmp}/rendezvous"
+        t0 = time.perf_counter()
+        mp.spawn(rank_main, args=(world, init, args.device, tmp),
+                 nprocs=world, join=True)
+        print(f"dist_check: {time.perf_counter() - t0:.1f} s on {world} "
+              f"{args.device} ranks")
+
+
+if __name__ == "__main__":
+    main()
