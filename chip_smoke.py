@@ -132,6 +132,18 @@ paper's size, and times the kernels. Phases:
                 after). With two cards, `launch.train` under torchrun on
                 2 ranks; with one, a line saying why the multi-rank
                 arithmetic rests on the CPU tests.
+ 14. roofline   `roofline.HW().hbm_per_chip` within 2% of the card's
+                `total_memory`; the dry run (`launch.dryrun`, a fake
+                (1, 1) mesh, fake tensors, in a CPU subprocess) of 12's
+                cell: its flops within 25% of 12's model flops with
+                remat's re-forward, its args + temp within 0.5-2x of 12's
+                peak memory, its roofline bound and `mfu_upper` against
+                12's ms per step; the decode roofline at 11's size beside
+                11's step; 10's share of each kernel's bound (through
+                `roofline.kernel_roofline`) equal to a recount from its
+                printed bytes and flops; the dry-run CLI
+                on llama3.2-1b x train_4k x the 16x16 mesh and the report
+                over it (both exit 0, the cell "ok"). No CMAX kernel.
 
 The second-to-last line is the `kernels` JSON object and the last line is
 {"ok": true, "device": {...}}. Any failed phase raises and the script exits
@@ -154,13 +166,6 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
-
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
-F32_FLOPS = 67e12             # H100 SXM float32 rate outside tensor cores
-# float operations per live tap record in the kernel's vote (warp, bilinear
-# weight and derivative coefficients, four channel updates), counted from
-# csrc/megakernel.cu
-TAP_FLOPS = 60
 
 B_WINDOWS = 8
 N_EVENTS = 40000
@@ -203,6 +208,20 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_bound_ms(flops: float, nbytes: float):
+    """(bound in ms, "bytes" or "operations") of a CMAX kernel's work:
+    `roofline.kernel_roofline` on the card's HBM rate and its float32 peak
+    (these kernels run outside the tensor cores). The bound is flops over
+    the roofline's rate, i.e. the larger of bytes / rate and flops /
+    peak."""
+    from repro_torch import roofline as roof
+    hw = dataclasses.replace(roof.default_hw(), peak_flops=roof.F32_FLOPS)
+    r = roof.kernel_roofline(flops, nbytes, hw=hw)
+    by = ("bytes" if r["arithmetic_intensity"] <= r["ridge_point"]
+          else "operations")
+    return flops / r["roofline_flops"] * 1e3, by
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3, hold: bool = True) -> float:
@@ -364,6 +383,7 @@ def time_window_kernels(T, ops, tile_accumulate, tile_accumulate_plain,
                         blur_stats_streaming, blur_stats_streaming_plain,
                         cfg, first, om_b, rows, card):
     """Phase 5 for the per-window engine's two kernels: per-stage rows."""
+    from repro_torch import roofline as roof
     cam = cfg.camera
     tile_rows, blur_rows = [], []
     for r in rows:
@@ -375,12 +395,11 @@ def time_window_kernels(T, ops, tile_accumulate, tile_accumulate_plain,
                 pack.pix, pack.deltas, p_tile=P_TILE), reps=20)
             slots = pack.pix.numel()
             n_out = pack.pix.shape[0] * pack.pix.shape[1] * P_TILE
-            delta_bytes = 16 if dtype == torch.float32 else 8
-            # every slot's pixel id, the deltas of the occupied slots, the
-            # tile partials; 4 adds per occupied slot
-            nbytes = slots * 4 + occupied * delta_bytes + n_out * 16
-            flops = occupied * 4
-            timed[(cap, dtype)] = (kern, nbytes, flops, slots, n_out)
+            costs = roof.cuda_tile_costs(
+                slots, occupied, n_out,
+                delta_bytes=16 if dtype == torch.float32 else 8)
+            timed[(cap, dtype)] = (kern, int(costs["hbm_bytes"]),
+                                   int(costs["flops"]), slots, n_out)
         pack, occupied = r["packs"][(CAPACITY, torch.float32)]
         kern, nbytes, flops, slots, n_out = timed[(CAPACITY, torch.float32)]
         plain = cuda_ms(lambda: tile_accumulate_plain(
@@ -410,15 +429,12 @@ def time_window_kernels(T, ops, tile_accumulate, tile_accumulate_plain,
         whole = cuda_ms(lambda: ops.iwe_accum(
             first, om_b, cam, st.scale, weights=r["weights"], tile=TILE,
             capacity=CAPACITY), reps=10, hold=False)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS * 1e3
-        bound = max(t_bytes, t_ops)
+        bound, bound_by = kernel_bound_ms(flops, nbytes)
         other = {f"ms_cap{cap}_{str(dt)[6:]}": v[0]
                  for (cap, dt), v in timed.items()}
         row = dict(scale=st.scale, capacity=CAPACITY, ms=kern,
                    plain_ms=plain, library_ms=lib, prologue_ms=pro,
-                   iwe_accum_ms=whole, bound_ms=bound,
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   iwe_accum_ms=whole, bound_ms=bound, bound_by=bound_by,
                    bytes=nbytes, flops=flops, zero_spill_capacity=r[
                        "zero_cap"], spilled_share=r["spilled_share"],
                    **other)
@@ -443,14 +459,12 @@ def time_window_kernels(T, ops, tile_accumulate, tile_accumulate_plain,
         row = dict(scale=st.scale, k=k, geometry=r["geometry"], ms=kern,
                    plain_ms=plain, library_ms=None, ms_b1=kern_1)
         for B, tag in ((B_WINDOWS, ""), (1, "_b1")):
-            nbytes = B * (4 * P * 4 + 32) + k * 4
-            flops = B * P * (16 * k + 12)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / F32_FLOPS * 1e3
-            row.update({f"bound_ms{tag}": max(t_bytes, t_ops),
-                        f"bound_by{tag}": "bytes" if t_bytes >= t_ops
-                        else "operations", f"bytes{tag}": nbytes,
-                        f"flops{tag}": flops})
+            costs = roof.cuda_blur_costs(B, P, k)
+            bound, bound_by = kernel_bound_ms(costs["flops"],
+                                              costs["hbm_bytes"])
+            row.update({f"bound_ms{tag}": bound, f"bound_by{tag}": bound_by,
+                        f"bytes{tag}": int(costs["hbm_bytes"]),
+                        f"flops{tag}": int(costs["flops"])})
         blur_rows.append(row)
         for B, tag in ((B_WINDOWS, ""), (1, "_b1")):
             t, bound = row[f"ms{tag}"], row[f"bound_ms{tag}"]
@@ -1431,6 +1445,203 @@ def train_dist_phase(cfg, counted, dev, card, single) -> dict:
     return out
 
 
+DRYRUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "dryrun")
+# [train]'s own cell on a fake (1, 1) mesh, as `launch.dryrun` runs a cell
+DRYRUN_CELL = """
+import json, sys
+from pathlib import Path
+from repro_torch.launch import dryrun
+from repro_torch.models.model import ShapeSpec
+seq, batch, micro, out = int(sys.argv[1]), int(sys.argv[2]), \\
+    int(sys.argv[3]), sys.argv[4]
+mesh = dryrun.fake_mesh((1, 1), ("data", "model"))
+shape = ShapeSpec("chip_train", seq, batch, "train")
+rec = dryrun.run_cell("llama3.2-1b", shape.name, "1x1", Path(out),
+                      force=True, mesh=mesh, shape=shape,
+                      overrides={"microbatch": micro})
+print(json.dumps({k: v for k, v in rec.items() if k != "traceback"}))
+if rec["status"] != "ok":
+    sys.exit(rec.get("traceback") or rec.get("error") or rec["status"])
+"""
+
+
+def cpu_subprocess(args) -> subprocess.Popen:
+    """A Python subprocess on this checkout's `src`, no card (it sees
+    none), its output captured."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = {**os.environ, "PYTHONPATH": src, "CUDA_VISIBLE_DEVICES": ""}
+    return subprocess.Popen([sys.executable, *args], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish(proc, what: str, timeout: float = 600) -> str:
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise RuntimeError(f"chip_smoke: {what} ran past {timeout} s")
+    check(proc.returncode == 0,
+          f"{what} exited {proc.returncode}: {err[-3000:]}")
+    return out
+
+
+def roofline_phase(cfg, train, lm, timing, card) -> dict:
+    """Phase 14: the roofline's machine balance against the card, the dry
+    run of [train]'s cell against [train]'s measurements, the decode
+    roofline beside [lm]'s step, [timing]'s kernel shares (through
+    `roofline.kernel_roofline`) against a recount, and the dry-run and
+    report CLIs (fake groups in CPU subprocesses, no card)."""
+    t0 = time.perf_counter()
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    cell = cpu_subprocess(["-c", DRYRUN_CELL, str(TRAIN_SEQ),
+                           str(TRAIN_BATCH), str(TRAIN_MICRO), DRYRUN_DIR])
+    sweep = cpu_subprocess(["-m", "repro_torch.launch.dryrun", "--arch",
+                            LM_ARCH, "--shape", "train_4k", "--mesh",
+                            "single", "--out", DRYRUN_DIR, "--force"])
+    try:
+        return _roofline_checks(cfg, train, lm, timing, card, cell, sweep,
+                                t0)
+    finally:
+        for proc in (cell, sweep):      # a failed check leaves none behind
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def _roofline_checks(cfg, train, lm, timing, card, cell, sweep, t0):
+    """`roofline_phase`'s checks, with its two subprocesses running."""
+    from repro_torch import roofline as roof
+    from repro_torch.configs import canonical
+    from repro_torch.models.model import ShapeSpec
+    hw = roof.default_hw()
+    out = {}
+
+    # (a) the machine balance's device memory against the card's
+    total = torch.cuda.get_device_properties(0).total_memory
+    out["hbm_per_chip"], out["total_memory"] = hw.hbm_per_chip, total
+    check(abs(hw.hbm_per_chip - total) <= 0.02 * total,
+          f"HW.hbm_per_chip {hw.hbm_per_chip:.0f} B is not within 2% of "
+          f"the card's {total} B")
+    print(f"[roofline] HW: {hw.peak_flops / 1e12:.0f} TFLOP/s bf16, "
+          f"{hw.hbm_bw / 1e12:.2f} TB/s, link {hw.link_bw / 1e9:.0f} GB/s, "
+          f"hbm_per_chip {hw.hbm_per_chip:.0f} B against the card's "
+          f"total_memory {total} B ({hw.hbm_per_chip / total:.4f}); on "
+          f"{card}")
+
+    # (c) a decode step at [lm]'s size: batch 1, max_len 256
+    dec = roof.roofline_terms(cfg, ShapeSpec("lm_decode", 256, 1, "decode"),
+                              1, 0.0, hw)
+    out["decode"] = dict(hbm_bytes=dec["hbm_bytes"], bound_ms=dec["bound_s"]
+                         * 1e3, dominant=dec["dominant"],
+                         pace_ms=lm["pace_ms"],
+                         device_ms=lm.get("device_ms"))
+    check(dec["dominant"] == "memory" and 0.6 < dec["bound_s"] * 1e3 < 0.9,
+          f"decode roofline {dec['bound_s'] * 1e3:.3f} ms "
+          f"({dec['dominant']}), not the 0.74 ms byte bound")
+    print(f"[roofline] {cfg.name} decode at batch 1, max_len 256: "
+          f"analytic {dec['hbm_bytes']:.4e} B, bound "
+          f"{dec['bound_s'] * 1e3:.3f} ms ({dec['dominant']}) against [lm]'s "
+          f"pace {lm['pace_ms']:.3f} ms a step (device "
+          f"{lm.get('device_ms', float('nan')):.3f} ms): "
+          f"{dec['bound_s'] * 1e3 / lm['pace_ms']:.4f} of the bound "
+          f"reached; on {card}")
+
+    # (d) [timing]'s shares (bounds through kernel_roofline) against a
+    # recount from its printed counts: the larger of bytes over the HBM
+    # rate and flops over the f32 peak, and which of the two it is
+    shares = {}
+    for name, rows in timing.items():
+        for r in rows:
+            for tag in ("", "_b1"):
+                if f"ms{tag}" not in r:
+                    continue
+                t_bytes = r[f"bytes{tag}"] / hw.hbm_bw
+                t_ops = r[f"flops{tag}"] / roof.F32_FLOPS
+                want = max(t_bytes, t_ops) * 1e3 / r[f"ms{tag}"]
+                got = r[f"bound_ms{tag}"] / r[f"ms{tag}"]
+                by = "bytes" if t_bytes >= t_ops else "operations"
+                check(abs(got - want) <= 1e-9 * want
+                      and r[f"bound_by{tag}"] == by,
+                      f"{name} s={r['scale']}{tag}: [timing]'s share {got} "
+                      f"({r[f'bound_by{tag}']}) != the recount's {want} "
+                      f"({by})")
+                shares[f"{name} s={r['scale']}{tag}"] = got
+    out["kernel_shares"] = shares
+    print(f"[roofline] [timing]'s kernel_roofline shares equal the recount: "
+          + ", ".join(f"{k} {100 * v:.2f}%" for k, v in shares.items())
+          + f"; on {card}")
+
+    # (b) [train]'s cell on a fake (1, 1) mesh against [train]
+    rec = json.loads(finish(cell, "the dry run of [train]'s cell")
+                     .strip().splitlines()[-1])
+    check(rec["status"] == "ok", f"dry run of [train]'s cell: {rec}")
+    measured = train["model_flops"] + train["remat_flops"]
+    flops = rec["cost"]["flops"]
+    mem = rec["memory"]["argument_size_in_bytes"] \
+        + rec["memory"]["temp_size_in_bytes"]
+    ratio = mem / (train["peak_gb"] * 1e9)
+    shape = ShapeSpec("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    terms = roof.roofline_terms(cfg, shape, 1,
+                                rec["collectives"].get("total", 0), hw)
+    step_s = train["ms_per_step"] / 1e3
+    out["train_cell"] = dict(
+        flops=flops, measured_flops=measured, flops_ratio=flops / measured,
+        args_bytes=rec["memory"]["argument_size_in_bytes"],
+        temp_bytes=rec["memory"]["temp_size_in_bytes"],
+        peak_bytes=train["peak_gb"] * 1e9, memory_ratio=ratio,
+        bound_s=terms["bound_s"], dominant=terms["dominant"],
+        mfu_upper=terms["mfu_upper"], step_s=step_s,
+        bound_share=terms["bound_s"] / step_s, step_wall_s=rec["step_s"],
+        torch_version=rec["torch_version"])
+    print(f"[roofline] dry run of [train]'s cell ({cfg.name}, seq "
+          f"{TRAIN_SEQ} x batch {TRAIN_BATCH} in {TRAIN_MICRO} microbatches, "
+          f"AdamW, remat full, fake (1, 1) mesh, torch "
+          f"{rec['torch_version']}, {rec['step_s']:.1f} s on the host): "
+          f"flops {flops:.4e} against the step's model flops with remat "
+          f"{measured:.4e} ({flops / measured:.4f}); args + temp "
+          f"{mem / 1e9:.2f} GB against [train]'s peak {train['peak_gb']:.2f}"
+          f" GB ({ratio:.4f}); roofline bound {terms['bound_s'] * 1e3:.1f} "
+          f"ms ({terms['dominant']}), mfu_upper {terms['mfu_upper']:.4f}, "
+          f"against {train['ms_per_step']:.1f} ms a step: "
+          f"{terms['bound_s'] / step_s:.4f} of the bound reached; on {card}")
+    check(abs(flops / measured - 1) <= 0.25,
+          f"dry-run flops {flops:.4e} not within 25% of {measured:.4e}")
+    check(0.5 <= ratio <= 2.0, f"dry-run memory / [train]'s peak {ratio}")
+
+    # (e) the dry-run CLI on train_4k x single, then the report over it
+    tag = f"{canonical(LM_ARCH)}__train_4k__single"
+    text = finish(sweep, "launch.dryrun train_4k single")
+    check(f"[ok]   {tag}" in text, f"launch.dryrun did not print {tag} ok: "
+          f"{text[-2000:]}")
+    rep = finish(cpu_subprocess(["-m", "repro_torch.roofline.report",
+                                 "--dir", DRYRUN_DIR, "--mesh", "single"]),
+                 "roofline.report")
+    check(f"| {tag} | ok |" in rep, f"report: {rep[-2000:]}")
+    rec = json.loads(open(os.path.join(DRYRUN_DIR, f"{tag}.json")).read())
+    s = roof.summarize_cell(rec, hw)
+    out["train_4k_single"] = dict(
+        flops_per_dev=rec["cost"]["flops"],
+        args_temp_gib=(rec["memory"]["argument_size_in_bytes"]
+                       + rec["memory"]["temp_size_in_bytes"]) / 2**30,
+        collective_bytes=rec["collectives"].get("total", 0),
+        dominant=s["dominant"], fits=s["fits_hbm"], step_wall_s=rec["step_s"])
+    print(f"[roofline] launch.dryrun {tag} ok ({rec['step_s']:.1f} s on the "
+          f"host): {rec['cost']['flops']:.4e} flops/dev, args + temp "
+          f"{out['train_4k_single']['args_temp_gib']:.2f} GiB/dev, "
+          f"collectives {out['train_4k_single']['collective_bytes']:.4e} "
+          f"B/dev, {s['dominant']}-bound, fits {s['fits_hbm']}; the report "
+          f"renders it")
+    for line in rep.splitlines():
+        if tag in line:
+            print(f"[roofline] report: {line}")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[roofline] phase {out['phase_s']:.1f} s")
+    return out
+
+
 def serve_phase(cfg, seqs, counted, dev, card):
     """Phase 5: the serving layer on the card. Returns the launches of each
     kernel in its drain and the printed numbers."""
@@ -1866,6 +2077,7 @@ def main() -> int:
                                      tile_accumulate_plain)
     from repro_torch.kernels import ref as kernel_ref
     from repro_torch.kernels.blur_stats import launch_config as blur_launch
+    from repro_torch import roofline as roof
     counted = (megakernel.megakernel_stats, tile_accumulate,
                blur_stats_streaming)
 
@@ -2128,21 +2340,15 @@ def main() -> int:
         weights = T.sort_events(first, om_b, cam, st).weights
         pro = cuda_ms(lambda: ops.bin_taps(first, om_b, weights, cam,
                                            st.scale), reps=20, hold=False)
-        # bytes the function needs: x, y, dt, pw of the events with live
-        # taps, each live record, the CSR offsets, omega, taps, the output.
-        # The kernel also reads each live record's sorted key, which the
-        # function does not need (the offsets give each record's pixel):
-        # that is the kernel's own traffic, printed apart, not in the bound
-        nbytes = (live // 4) * 16 + live * 4 + B_WINDOWS * (P + 1) * 4 \
-            + B_WINDOWS * 12 + k * 4 + B_WINDOWS * 32
-        key_bytes = live * 4
-        flops = live * TAP_FLOPS + B_WINDOWS * P * (16 * k + 12)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS * 1e3
-        bound = max(t_bytes, t_ops)
+        # what the function needs (`roofline.cuda_megakernel_costs`); the
+        # sorted keys the kernel also reads are its own traffic, printed
+        # apart and not in the bound
+        costs = roof.cuda_megakernel_costs(live, B_WINDOWS, P, k)
+        nbytes, flops = int(costs["hbm_bytes"]), int(costs["flops"])
+        key_bytes = int(costs["key_bytes"])
+        bound, bound_by = kernel_bound_ms(flops, nbytes)
         row = dict(scale=st.scale, k=k, ms=kern, plain_ms=plain,
-                   prologue_ms=pro, bound_ms=bound,
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   prologue_ms=pro, bound_ms=bound, bound_by=bound_by,
                    bytes=nbytes, flops=flops, key_bytes=key_bytes)
         per_stage.append(row)
         print(f"[timing] s={st.scale} k={k} B={B_WINDOWS}: kernel "
@@ -2151,7 +2357,8 @@ def main() -> int:
               f"({row['bound_by']}: {nbytes} B, {flops} flop) = "
               f"{100 * bound / kern:.2f}% of bound reached; the kernel also "
               f"reads {key_bytes} B of sorted keys "
-              f"({key_bytes / HBM_BYTES_PER_S * 1e6:.2f} us), on {card}")
+              f"({key_bytes / roof.default_hw().hbm_bw * 1e6:.2f} us), on "
+              f"{card}")
 
     tile_rows, blur_rows = time_window_kernels(
         T, ops, tile_accumulate, tile_accumulate_plain, blur_stats_streaming,
@@ -2233,6 +2440,12 @@ def main() -> int:
     dist_out = train_dist_phase(lm_cfg, counted, dev, card, train)
     dist_out["phase_s"] = time.perf_counter() - t_dist
     print(f"[train-dist] {json.dumps(dist_out)}")
+
+    # ---- 14. the roofline and the dry run against the measurements ----
+    roofline = roofline_phase(lm_cfg, train, lm, {
+        "megakernel_stats": per_stage, "tile_accumulate": tile_rows,
+        "blur_stats_streaming": blur_rows}, card)
+    print(f"[roofline] {json.dumps(roofline)}")
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -91,16 +91,28 @@ def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (the reference's `preferred_element_type=jnp.float32`). bf16 on the
     card: one cuBLAS product with a float32 output (`_F32Product`, which
     has a backward); elsewhere both factors are widened first (bf16
-    products are exact in float32)."""
+    products are exact in float32). DTensors run on their local shards
+    (`_sharded_f32_product`) on any device."""
+    if is_dtensor(x):
+        return _sharded_f32_product(x, w)
+    return _local_f32_product(x, w)
+
+
+def _local_f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`f32_product` of plain tensors."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return x @ w
-    if x.is_cuda and is_dtensor(x):
-        return _sharded_f32_product(x, w)
     if x.is_cuda:
-        lead = x.shape[:-1]
-        out = _F32Product.apply(x.reshape(-1, x.shape[-1]), w)
-        return out.reshape(*lead, w.shape[1])
+        return _card_f32_product(x, w)
     return x.float() @ w.float()
+
+
+def _card_f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`f32_product` of bf16 factors on the card: `_F32Product` over the
+    rows of x."""
+    lead = x.shape[:-1]
+    out = _F32Product.apply(x.reshape(-1, x.shape[-1]), w)
+    return out.reshape(*lead, w.shape[1])
 
 
 def is_dtensor(x) -> bool:
@@ -108,10 +120,35 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def no_graph(module: nn.Module):
+    """The context the serving entry points run `module` under:
+    `torch.inference_mode()`, or `torch.no_grad()` where its parameters
+    are DTensors (a view of a DTensor parameter sets a version counter,
+    which inference mode refuses). Neither records a graph."""
+    p = next(module.parameters(), None)
+    if p is not None and is_dtensor(p):
+        return torch.no_grad()
+    return torch.inference_mode()
+
+
 def plain(t: torch.Tensor) -> torch.Tensor:
     """The whole of a DTensor as a plain tensor (a collective its mesh
     joins); any other tensor as it is."""
     return t.full_tensor() if is_dtensor(t) else t
+
+
+def seq_gathered(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor activation (B, S, ...) with its sequence shards gathered
+    (sequence parallelism's all-gather before the column-parallel
+    products): DTensor on torch 2.11 cannot flatten (B, S) for a product
+    while S is sharded. Any other tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Replicate() if p == Shard(1) else p for p in x.placements]
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(placements=pl)
 
 
 def settle(x: torch.Tensor) -> torch.Tensor:
@@ -126,14 +163,15 @@ def settle(x: torch.Tensor) -> torch.Tensor:
 
 
 def _sharded_f32_product(x, w):
-    """`f32_product` of DTensors on the card. DTensor has no sharding rule
-    for the float32-output product (`aten.mm.dtype`), so it runs on the
-    local shards: `w` is gathered along its contracting dimension (the
-    FSDP shard), its output columns stay sharded (vocab-parallel logits),
-    and `x` keeps its batch shards and is replicated where `w`'s columns
-    are sharded. Each local gradient is declared for what it is: a partial
-    sum where the other factor's shards split the contraction of the
-    backward product."""
+    """`f32_product` of DTensors. DTensor has no sharding rule for the
+    float32-output product (`aten.mm.dtype`), and on the widened factors
+    its propagation may replicate the whole (tokens x vocab) product, so
+    it runs on the local shards: `w` is gathered along its contracting
+    dimension (the FSDP shard), its output columns stay sharded
+    (vocab-parallel logits), and `x` keeps its batch shards and is
+    replicated where `w`'s columns are sharded. Each local gradient is
+    declared for what it is: a partial sum where the other factor's shards
+    split the contraction of the backward product."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = x.device_mesh
     lead = x.ndim - 1
@@ -146,8 +184,7 @@ def _sharded_f32_product(x, w):
     w_loc = w.redistribute(placements=w_pl).to_local(grad_placements=[
         Partial() if isinstance(xp, Shard) else wp
         for xp, wp in zip(x_pl, w_pl)])
-    out = _F32Product.apply(x_loc.reshape(-1, x_loc.shape[-1]), w_loc)
-    out = out.reshape(*x_loc.shape[:-1], w_loc.shape[1])
+    out = _local_f32_product(x_loc, w_loc)
     shape = torch.Size((*x.shape[:-1], w.shape[1]))
     return DTensor.from_local(
         out, mesh, [Shard(lead) if wp == Shard(1) else xp
@@ -436,6 +473,7 @@ def _sharded_attention(p: Attention, x, kv_x, cfg: ModelConfig, kind: str,
     output comes back as a DTensor with the query's placements for the
     row-parallel `wo`."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    x, kv_x = seq_gathered(x), seq_gathered(kv_x)
     mesh = x.device_mesh
     names = mesh.mesh_dim_names
     hd, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -465,15 +503,109 @@ def _sharded_attention(p: Attention, x, kv_x, cfg: ModelConfig, kind: str,
     if k.shape[2] == Hkv and hq != H:
         # whole KV heads, this rank's query heads [r*hq, (r+1)*hq)
         g = H // Hkv
-        r = mesh.get_local_rank(names.index("model"))
-        kv = (r * hq + torch.arange(hq, device=q.device)) // g
+        first = mesh.get_local_rank(names.index("model")) * hq
         if hq % g == 0 or g % hq == 0:
-            k, v = (t[:, :, int(kv[0]):int(kv[-1]) + 1] for t in (k, v))
+            # a contiguous run of KV heads, found on the host
+            k, v = (t[:, :, first // g:(first + hq - 1) // g + 1]
+                    for t in (k, v))
         else:
+            kv = (first + torch.arange(hq, device=q.device)) // g
             k, v = k[:, :, kv], v[:, :, kv]
     out = _attend(q, k, v, cfg, kind, positions).flatten(-2)
     out = DTensor.from_local(out, mesh, q_pl, run_check=False)
     return out @ p.wo
+
+
+def _sharded_cached_attention(p: Attention, x, cfg: ModelConfig, kind: str,
+                              positions: Optional[torch.Tensor],
+                              cache: Cache) -> torch.Tensor:
+    """`attention_apply` of a DTensor decode step against a cache of
+    DTensors (`sharding.distribute_cache`), on local shards. The cache
+    holds its batch rows over the data-parallel axes and, on "model",
+    its KV heads where they divide it, else its positions (flash-decode),
+    else all of it. q, k and v are placed as the cache is (the query heads
+    with the KV heads) and taken local; the new keys and values go into
+    the local buffers at the host-side position, on the rank that holds
+    that position (a ring cache's positions table is replicated, and every
+    rank writes it). Where the positions are sharded, each rank attends
+    over its own and the partial softmaxes are merged across the shards
+    (`_sdpa_merged`). The output comes back as a DTensor for the
+    row-parallel `wo`."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = x.device_mesh
+    hd = cfg.head_dim
+    c_pl = cache["k"].placements
+    pl = [c if c in (Shard(0), Shard(2)) else Replicate() for c in c_pl]
+
+    def project(w, b):
+        t = x @ w
+        if cfg.qkv_bias:
+            t = t + b.flatten()
+        t = t.redistribute(placements=pl).to_local()
+        return t.unflatten(-1, (t.shape[-1] // hd, hd))
+
+    q = project(p.wq, getattr(p, "bq", None))
+    k = project(p.wk, getattr(p, "bk", None))
+    v = project(p.wv, getattr(p, "bv", None))
+    Sq, dev = q.shape[1], q.device
+    pos_q = torch.arange(Sq, device=dev) if positions is None else positions
+    if cfg.pos_embedding == "rope":
+        q = apply_rope(q, pos_q, cfg)
+        k = apply_rope(k, pos_q, cfg)
+    seq = [i for i, c in enumerate(c_pl) if c == Shard(1)]
+    kc, vc = cache["k"].to_local(), cache["v"].to_local()
+    n_loc = kc.shape[1]
+    first = mesh.get_local_rank(seq[0]) * n_loc if seq else 0
+    idx = cache["idx"]
+    qi = idx + torch.arange(Sq, device=dev)[:, None]
+    if "pos" in cache:
+        if Sq != 1:
+            raise ValueError("ring cache supports single-token decode")
+        slot = idx % cache["k"].shape[1]
+        kpos = cache["pos"].to_local()
+        kpos[slot] = idx
+        if first <= slot < first + n_loc:
+            kc[:, slot - first:slot - first + 1] = k
+            vc[:, slot - first:slot - first + 1] = v
+        kp = kpos[first:first + n_loc][None, :]
+        m = (kp >= 0) & (kp <= qi) & (kp > qi - cfg.local_window)
+    else:
+        start = min(max(idx, 0), cache["k"].shape[1] - Sq)
+        lo, hi = max(start, first), min(start + Sq, first + n_loc)
+        if lo < hi:
+            kc[:, lo - first:hi - first] = k[:, lo - start:hi - start]
+            vc[:, lo - first:hi - first] = v[:, lo - start:hi - start]
+        kj = first + torch.arange(n_loc, device=dev)[None, :]
+        m = kj <= qi
+        if kind == "local" and cfg.local_window:
+            m = m & (kj > qi - cfg.local_window)
+    cache["idx"] = idx + Sq
+    out = _sdpa_merged(q, kc, vc, m[None], mesh.get_group(seq[0])) if seq \
+        else _sdpa(q, kc, vc, m[None])
+    out = DTensor.from_local(out.flatten(-2), mesh, pl, run_check=False)
+    return out @ p.wo
+
+
+def _sdpa_merged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mask: torch.Tensor, group) -> torch.Tensor:
+    """`_sdpa` over keys split across the ranks of `group` (each holds
+    its own keys and values and their mask columns): the scores' max is
+    taken over the group, then each rank's exponentials' sum and their
+    product with its values are summed over it in one all-reduce."""
+    import torch.distributed as dist
+    B, Sq, H, Dh = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, H // Hkv, Dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    s = (s / math.sqrt(Dh)).masked_fill(~mask[:, None, None, :, :], -1e30)
+    top = s.amax(-1, keepdim=True)
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    e = torch.exp(s - top)
+    tot = torch.cat([torch.einsum("bhgqk,bkhd->bhgqd", e, v.float()),
+                     e.sum(-1, keepdim=True)], dim=-1)
+    dist.all_reduce(tot, group=group)
+    out = tot[..., :-1] / tot[..., -1:]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dh).to(q.dtype)
 
 
 def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
@@ -487,12 +619,16 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     start clamped into the buffer, as `dynamic_update_slice` clamps it) or,
     for a ring cache (local attention, a 'pos' entry), at idx % window.
     Returns (out, cache) with the same cache dict, updated in place. DTensor
-    activations (no cache) run `_sharded_attention`."""
+    activations run `_sharded_attention` (no cache) or, against a cache of
+    DTensors, `_sharded_cached_attention`."""
     B, Sq, _ = x.shape
     dev = x.device
     kv_x = kv_source if kv_source is not None else x
     if cache is None and is_dtensor(x):
         return _sharded_attention(p, x, kv_x, cfg, kind, positions), cache
+    if cache is not None and kind != "cross" and is_dtensor(cache["k"]):
+        return _sharded_cached_attention(p, x, cfg, kind, positions,
+                                         cache), cache
     q, k, v = _qkv(p, x, kv_x, cfg)
     if cache is None or kind == "cross":
         return _attend(q, k, v, cfg, kind, positions).flatten(-2) @ p.wo, \
@@ -555,6 +691,7 @@ class FFN(nn.Module):
             self.bd = _const((d,), 0.0, dt, g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = seq_gathered(x)
         if self.swiglu:
             return (F.silu(x @ self.wg) * (x @ self.wu)) @ self.wd
         # jax.nn.gelu defaults to the tanh approximation

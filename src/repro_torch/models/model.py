@@ -5,8 +5,9 @@ stand-ins for the inputs, the parameters and the optimizer state.
 
 Each factory takes the config the step is for and returns a step over a
 model of that config; a model of another config is refused. The eval,
-prefill and serve steps run under `torch.inference_mode()` (no graph is
-recorded, though the parameters are trainable); the train step updates
+prefill and serve steps run under `layers.no_graph` (inference mode, or
+no_grad on a distributed model: no graph is recorded, though the
+parameters are trainable); the train step updates
 the model's parameters in place. On a model with DTensor parameters
 (`sharding.distribute_model`) and a DTensor batch the steps run sharded;
 `mesh`, `dp_axes`, `use_ep`, `act_sharding` and `ep_fsdp` are
@@ -23,7 +24,7 @@ import torch
 
 from . import transformer as tfm
 from .config import ModelConfig
-from .layers import is_dtensor, plain
+from .layers import is_dtensor, no_graph, plain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,14 +222,14 @@ def make_eval_step(cfg: ModelConfig, *, mesh=None,
                    use_ep: bool = False) -> Callable:
     """step(model, batch) -> {"loss", "logits_mean"}; batch: dict(tokens,
     labels [, cross_source])."""
-    @torch.inference_mode()
     def step(model, batch):
         _check(model, cfg)
-        logits = tfm.forward(model, batch["tokens"],
-                             cross_source=batch.get("cross_source"),
-                             mesh=mesh, dp_axes=dp_axes, use_ep=use_ep)
-        return {"loss": plain(loss_fn(logits, batch["labels"])),
-                "logits_mean": plain(logits.mean())}
+        with no_graph(model):
+            logits = tfm.forward(model, batch["tokens"],
+                                 cross_source=batch.get("cross_source"),
+                                 mesh=mesh, dp_axes=dp_axes, use_ep=use_ep)
+            return {"loss": plain(loss_fn(logits, batch["labels"])),
+                    "logits_mean": plain(logits.mean())}
     return step
 
 
@@ -238,29 +239,46 @@ def make_prefill_step(cfg: ModelConfig, *, mesh=None,
                       ep_fsdp: bool = False) -> Callable:
     """Prefill: full forward returning last-position logits (B, V) (a
     DTensor on a distributed model)."""
-    @torch.inference_mode()
     def step(model, batch):
         _check(model, cfg)
-        logits = tfm.forward(model, batch["tokens"],
-                             cross_source=batch.get("cross_source"),
-                             mesh=mesh, dp_axes=dp_axes, use_ep=use_ep,
-                             act_sharding=act_sharding, ep_fsdp=ep_fsdp)
-        return logits[:, -1]
+        with no_graph(model):
+            logits = tfm.forward(model, batch["tokens"],
+                                 cross_source=batch.get("cross_source"),
+                                 mesh=mesh, dp_axes=dp_axes, use_ep=use_ep,
+                                 act_sharding=act_sharding, ep_fsdp=ep_fsdp)
+            return logits[:, -1]
     return step
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
     """Decode: one new token against a populated cache.
-    step(model, cache, token, cross_source=None) -> (next token (B, 1)
-    int32, logits (B, 1, V) float32, cache)."""
-    @torch.inference_mode()
-    def step(model, cache, token, cross_source=None):
+    step(model, cache, token, cross_source=None, pos=None) -> (next token
+    (B, 1) int32, logits (B, 1, V) float32, cache); `pos` is
+    `transformer.decode_step`'s. A distributed model decodes against a
+    cache placed by `sharding.distribute_cache` and a DTensor token."""
+    def step(model, cache, token, cross_source=None, pos=None):
         _check(model, cfg)
-        logits, cache = tfm.decode_step(model, token, cache,
-                                        cross_source=cross_source)
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        return next_tok[:, None], logits, cache
+        with no_graph(model):
+            logits, cache = tfm.decode_step(model, token, cache,
+                                            cross_source=cross_source,
+                                            pos=pos)
+            next_tok = _argmax_rows(logits[:, -1]).to(torch.int32)
+            return next_tok[:, None], logits, cache
     return step
+
+
+def _argmax_rows(logits: torch.Tensor) -> torch.Tensor:
+    """argmax over the last axis of (B, V) logits. DTensor logits keep
+    their batch shards, gather their vocab shards (each rank its own rows,
+    whole) and take the argmax locally: DTensor's own argmax over a
+    sharded axis reads shard offsets on the host."""
+    if not is_dtensor(logits):
+        return torch.argmax(logits, dim=-1)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    pl = [p if p == Shard(0) else Replicate() for p in logits.placements]
+    local = logits.redistribute(placements=pl).to_local()
+    return DTensor.from_local(torch.argmax(local, dim=-1),
+                              logits.device_mesh, pl, run_check=False)
 
 
 # ----------------------------------------------------------------------

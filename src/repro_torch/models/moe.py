@@ -19,7 +19,7 @@ own tokens. Capacity is per (source rank, expert) buffer:
 C = ceil(cf * T_local * k / E).
 
 On DTensor inputs without EP, `moe_apply` runs on the whole (replicated)
-batch and weights: its sort, bincount and scatters have no DTensor
+batch and weights: its sort, search and scatters have no DTensor
 sharding rules, and the reference's semantics are global (one dispatch
 over every token, capacity from the global count).
 """
@@ -100,8 +100,9 @@ def _pack_dispatch(x: torch.Tensor, ids: torch.Tensor, n_experts: int,
     order = torch.argsort(flat_e, stable=True)           # expert-major
     e_s = flat_e[order]
     tok_s = pair_tok[order]
-    cnt = torch.bincount(e_s, minlength=n_experts)
-    offset = torch.cumsum(cnt, 0) - cnt
+    # first sorted pair of each expert (static shape, unlike a bincount,
+    # so fake tensors can run it)
+    offset = torch.searchsorted(e_s, torch.arange(n_experts, device=dev))
     rank = torch.arange(T * k, device=dev) - offset[e_s]
     kept = rank < capacity
     # each kept pair owns a unique slot; dropped pairs write a spare row
@@ -158,6 +159,7 @@ def _moe_replicated(p: MoE, x, cfg: ModelConfig, capacity: Optional[int]):
     from types import SimpleNamespace
 
     from torch.distributed.tensor import DTensor, Replicate
+    x = settle(x)           # a pending sum cannot be handed back as one
     mesh = x.device_mesh
     local = {n: _replicated_local(t) for n, t in p.named_parameters()}
     params = SimpleNamespace(**{n: local[n] for n in

@@ -25,9 +25,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import ModelConfig
-from .layers import _const, _dtype, _normal
+from .layers import _const, _dtype, _normal, is_dtensor
 
 Cache = Dict[str, torch.Tensor]
+
+
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """log(sigmoid(x)). DTensor has no sharding rule for `F.logsigmoid`,
+    so a DTensor takes -softplus(-x), the form `jax.nn.log_sigmoid`
+    computes."""
+    return -F.softplus(-x) if is_dtensor(x) else F.logsigmoid(x)
 
 
 def _headnorm(h: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
@@ -63,7 +70,7 @@ class MLSTM(nn.Module):
         v = (x @ self.wv).unflatten(-1, (H, dh))
         gates = torch.einsum("bsd,dhg->bshg", x.float(), self.wif)
         log_i = gates[..., 0]                        # (B,S,H) pre-activation
-        log_f = F.logsigmoid(gates[..., 1])          # log sigmoid forget
+        log_f = _log_sigmoid(gates[..., 1])          # log sigmoid forget
         return q, k, v, log_i, log_f
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -150,7 +157,7 @@ class SLSTM(nn.Module):
         pre = (xt + rec).float()                             # (B,4,H,dh)
         z = torch.tanh(pre[:, 0])
         log_i = pre[:, 1]
-        log_f = F.logsigmoid(pre[:, 2])
+        log_f = _log_sigmoid(pre[:, 2])
         o = torch.sigmoid(pre[:, 3])
         m_new = torch.maximum(log_f + st["m"], log_i)
         fs = torch.exp(log_f + st["m"] - m_new)

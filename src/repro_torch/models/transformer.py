@@ -33,7 +33,8 @@ from ..device import DeviceLike, resolve
 from . import recurrent as rec
 from .config import ModelConfig
 from .layers import (Attention, Embedding, FFN, LearnedPositions, LMHead,
-                     Norm, _dtype, attention_apply, unembed_apply)
+                     Norm, _dtype, attention_apply, is_dtensor, no_graph,
+                     unembed_apply)
 from .moe import MoE, moe_apply_ep
 
 Cache = Dict[str, object]
@@ -109,20 +110,20 @@ class Block(nn.Module):
             h, cache = attention_apply(self.attn, self.ln1(x), cfg,
                                        kind=akind, positions=positions,
                                        cache=cache)
-            x = x + h
+            x = _residual(x, h)
             if kind == "cross" and cross_source is not None:
                 h, _ = attention_apply(self.xattn, self.lnx(x), cfg,
                                        kv_source=cross_source, kind="cross")
-                x = x + h
+                x = _residual(x, h)
             if kind == "moe" and use_ep and mesh is not None:
-                x = x + moe_apply_ep(self.moe, self.ln2(x), cfg, mesh,
-                                     dp_axes=dp_axes,
-                                     fsdp_axis="data" if ep_fsdp else None)
+                h = moe_apply_ep(self.moe, self.ln2(x), cfg, mesh,
+                                 dp_axes=dp_axes,
+                                 fsdp_axis="data" if ep_fsdp else None)
             elif kind == "moe":
-                x = x + self.moe(self.ln2(x))
+                h = self.moe(self.ln2(x))
             else:
-                x = x + self.ffn(self.ln2(x))
-            return x, cache
+                h = self.ffn(self.ln2(x))
+            return _residual(x, h), cache
 
         if kind in ("mlstm", "slstm"):
             xn = self.ln1(x)
@@ -139,6 +140,19 @@ class Block(nn.Module):
             h, cache = self.rec.step(xn, cache)
             x = x + h
         return x + self.ffn(self.ln2(x)), cache
+
+
+def _residual(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """x + h. Where the residual stream `x` is a DTensor with its
+    sequence sharded (sequence-parallel activations), `h` is first placed
+    as `x` explicitly, so that its gradient comes back in `h`'s own
+    placements: DTensor on torch 2.11 cannot flatten a sequence-sharded
+    gradient into the product that made `h`."""
+    from torch.distributed.tensor import Shard
+    if is_dtensor(h) and is_dtensor(x) and Shard(1) in x.placements \
+            and h.placements != x.placements:
+        h = h.redistribute(placements=x.placements)
+    return x + h
 
 
 def block_cache_init(kind: str, cfg: ModelConfig, B: int, max_len: int,
@@ -337,17 +351,22 @@ def clone_cache(cache: Cache) -> Cache:
                         for k, v in c.items()} for c in cache["layers"]]}
 
 
-@torch.inference_mode()
 def decode_step(model: Transformer, token: torch.Tensor, cache: Cache, *,
                 cross_source: Optional[torch.Tensor] = None,
                 pos: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
     """One-token decode. token: (B,1) integer. Returns ((B,1,V) float32
     logits, cache), the cache updated in place. Runs under
-    `torch.inference_mode()`: decoding records no graph, though the
+    `layers.no_graph` (`torch.inference_mode()`, or `torch.no_grad()` for
+    a distributed model): decoding records no graph, though the
     parameters are trainable.
 
     For enc-dec models `cross_source` is the ALREADY-ENCODED memory (encode
     once at serve start, not per decode step)."""
+    with no_graph(model):
+        return _decode_step(model, token, cache, cross_source, pos)
+
+
+def _decode_step(model, token, cache, cross_source, pos):
     cfg = model.cfg
     x = model.embed(token)
     if pos is None:

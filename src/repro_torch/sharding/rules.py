@@ -368,3 +368,28 @@ def distribute_batch(batch: Mapping[str, object], mesh) -> Dict[str, object]:
     specs = batch_specs(batch, mesh)
     return {k: place(v, mesh, to_placements(specs[k], mesh))
             for k, v in batch.items()}
+
+
+def distribute_cache(cache, cfg: ModelConfig, mesh):
+    """A port decode cache ({"layers": [...]}, the same whole tensors on
+    every rank) with each tensor a DTensor on DeviceMesh `mesh`, placed by
+    `cache_specs` (a repeated period's entry takes its stacked leaf's spec
+    less the stacked axis): a local slice, no communication. The write
+    positions ("idx") stay host ints. Returns a new cache; the layers run
+    their decode step on the local shards (`layers.attention_apply`)."""
+    import torch
+
+    from ..models.leaves import reference_leaf
+    specs = cache_specs(cache, cfg, mesh)
+    layers = []
+    for i, c in enumerate(cache["layers"]):
+        placed = {}
+        for k, v in c.items():
+            if not isinstance(v, torch.Tensor):
+                placed[k] = v
+                continue
+            key, idx = reference_leaf(f"layers.{i}.{k}", cfg)
+            spec = tuple(specs[key])[(0 if idx is None else 1):]
+            placed[k] = place(v, mesh, to_placements(P(*spec), mesh))
+        layers.append(placed)
+    return {"layers": layers}

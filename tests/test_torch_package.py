@@ -67,6 +67,8 @@ def test_every_module_imports_without_jax_or_the_reference():
                 "repro_torch.sharding", "repro_torch.sharding.rules",
                 "repro_torch.sharding.comms", "repro_torch.train.pipeline",
                 "repro_torch.configs", "repro_torch.configs.cmax_camel",
+                "repro_torch.roofline", "repro_torch.roofline.analysis",
+                "repro_torch.roofline.report", "repro_torch.launch.dryrun",
                 *[f"repro_torch.configs.{a}" for a in ARCH_IDS]):
         assert mod in names, mod
 

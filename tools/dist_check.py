@@ -1,6 +1,7 @@
-"""Multi-device training across ranks: the port's DP, FSDP, TP and EP
-train steps on a (2, 2) ("data", "model") grid, one process per rank,
-against the single-device loop on each rank's own device.
+"""Multi-device training and decoding across ranks: the port's DP, FSDP,
+TP and EP train steps on a (2, 2) ("data", "model") grid, one process per
+rank, against the single-device loop on each rank's own device; and
+decoding on a distributed model and cache against one device.
 
     python3 tools/dist_check.py                       # 4 cards, NCCL
     PYTHONPATH=src python tools/dist_check.py --device cpu   # 4 gloo ranks
@@ -14,7 +15,16 @@ parameters must agree at rtol 5e-4 / atol 5e-5
 E/k, where no token-expert pair is dropped on one device or on any EP
 shard. Rank 0 prints one line per case: the largest differences, the
 collectives of one more step (`sharding.comms.StepCommMode`) and the
-median ms per step of steps 2-3 on the grid and on one device. Exits
+median ms per step of steps 2-3 on the grid and on one device.
+
+The decode cases run llama3.2-1b's SMOKE config (seed 0) through
+`make_serve_step` for 8 tokens from an empty cache of 16 positions, the
+model placed by `sharding.distribute_model` and the cache by
+`distribute_cache`: on (2, 2) the KV heads split over "model"; on (1, 4)
+they do not divide it, so the cache's positions split four ways and each
+step merges the partial softmaxes across the ranks
+(`layers._sdpa_merged`). The logits must agree with the single-device
+chain at the same bar and the greedy tokens must be equal. Exits
 non-zero if a case disagrees.
 """
 from __future__ import annotations
@@ -39,6 +49,8 @@ RTOL, ATOL = 5e-4, 5e-5
 SEQ, BATCH, STEPS = 16, 4, 3
 CASES = [("llama3.2-1b", {}), ("llama3.2-1b", dict(fsdp=True)),
          ("deepseek-moe-16b", dict(use_ep=True, fsdp=True))]
+DECODE_GRIDS = [(2, 2), (1, 4)]
+DECODE_STEPS, DECODE_LEN = 8, 16
 
 
 def run(cfg, mesh, ckpt_dir, **kw):
@@ -49,6 +61,56 @@ def run(cfg, mesh, ckpt_dir, **kw):
     it = batches(LMDataConfig(cfg.vocab_size, SEQ, BATCH))
     hist = loop.train(cfg, tc, mesh, it, max_len=SEQ)
     return hist, tc, it
+
+
+def decode_chain(cfg, model, cache, toks, place_token=None):
+    """Logits (steps, B, V) and next tokens (steps, B) of `make_serve_step`
+    over toks (B, steps), as whole tensors."""
+    from repro_torch.models import make_serve_step
+    step = make_serve_step(cfg)
+    whole = lambda t: (t.full_tensor() if hasattr(t, "full_tensor") else t)
+    logits, nxt = [], []
+    for t in range(toks.shape[1]):
+        tok = toks[:, t:t + 1]
+        n, lg, cache = step(model, cache,
+                            place_token(tok) if place_token else tok)
+        logits.append(whole(lg)[:, 0])
+        nxt.append(whole(n)[:, 0])
+    return torch.stack(logits), torch.stack(nxt)
+
+
+def decode_case(shape, dev, devices):
+    """One decode case on a grid of `shape` against one device: a dict
+    for rank 0's line."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import device_mesh, make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import (distribute_batch, distribute_cache,
+                                      distribute_model)
+    cfg = get_smoke_config("llama3.2-1b")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (BATCH, DECODE_STEPS)), device=dev)
+
+    def model():
+        return tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                               device=dev)
+
+    def cache():
+        return tfm.init_cache(cfg, BATCH, DECODE_LEN, device=dev)
+    want_lg, want_tok = decode_chain(cfg, model(), cache(), toks)
+    mesh = device_mesh(make_mesh(shape, ("data", "model"), devices))
+    dcache = distribute_cache(cache(), cfg, mesh)
+    t0 = time.perf_counter()
+    got_lg, got_tok = decode_chain(
+        cfg, distribute_model(model(), mesh), dcache, toks,
+        lambda t: distribute_batch({"token": t}, mesh)["token"])
+    grid_s = time.perf_counter() - t0
+    return {"decode": "llama3.2-1b", "grid": list(shape),
+            "cache_k": str(dcache["layers"][0]["k"].placements),
+            "ok": bool(torch.allclose(got_lg, want_lg, rtol=RTOL, atol=ATOL)
+                       and torch.equal(got_tok, want_tok)),
+            "logits_max_abs_err": float((got_lg - want_lg).abs().max()),
+            "ms_per_token": grid_s / DECODE_STEPS * 1e3}
 
 
 def rank_main(rank, world, init, device_type, tmp):
@@ -106,6 +168,12 @@ def rank_main(rank, world, init, device_type, tmp):
                     * 1e3}), flush=True)
             if not ok:
                 bad.append(arch)
+        for shape in DECODE_GRIDS:
+            line = decode_case(shape, dev, devices)
+            if rank == 0:
+                print(json.dumps(line), flush=True)
+            if not line["ok"]:
+                bad.append(f"decode on {shape}")
     finally:
         torch.distributed.destroy_process_group()
     if bad:
