@@ -132,7 +132,21 @@ paper's size, and times the kernels. Phases:
                 after). With two cards, `launch.train` under torchrun on
                 2 ranks; with one, a line saying why the multi-rank
                 arithmetic rests on the CPU tests.
- 14. roofline   `roofline.HW().hbm_per_chip` within 2% of the card's
+ 14. recurrent  the recurrent sequence forms at full width in 13's world
+                and on its (1, 1) grid, no CMAX kernel: xlstm-1.3b's
+                published config (48 mLSTM / sLSTM layers, d_model 2048,
+                4 heads, vocab 50,304, bf16, seeded) trained through
+                `train.loop.train` on the card (AdamW, remat "full", seq
+                256 — train_4k's 4,096 cut for sLSTM's loop over time —
+                global batch 8 in 2 microbatches, 3 steps, no checkpoint),
+                then on the grid with FSDP: each grid loss within rtol
+                5e-4 of the card's; ms per step of both, peak memory, one
+                card step's idle share and launches under the profiler.
+                recurrentgemma-9b's published config (38 layers, d_model
+                4096, bf16, ~18 GB) prefilled through `make_prefill_step`
+                at 1 x 2,048 tokens plainly and on the grid: logits within
+                rtol 5e-4 / atol 5e-5, greedy next tokens equal; ms of each.
+ 15. roofline   `roofline.HW().hbm_per_chip` within 2% of the card's
                 `total_memory`; the dry run (`launch.dryrun`, a fake
                 (1, 1) mesh, fake tensors, in a CPU subprocess) of 12's
                 cell: its flops within 25% of 12's model flops with
@@ -152,6 +166,7 @@ non-zero without a CUDA card.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -738,14 +753,13 @@ def lm_step_timing(model, dev, card, steps: int = 5) -> dict:
             tt.decode_step(model, token, cache)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3 / steps
-    evts = prof.key_averages()
-    kernels = kernel_events(prof)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / steps / 1e3
+    busy, launches, top = device_kernels(prof)
+    busy_ms = busy / steps
     out = dict(pace_ms=pace_ms, profiled_ms=prof_ms,
-               launches_per_step=sum(e.count for e in kernels) / steps,
+               launches_per_step=launches / steps,
                aten_calls_per_step=sum(
-                   e.count for e in evts if e.key.startswith("aten::"))
-               / steps)
+                   e.count for e in prof.key_averages()
+                   if e.key.startswith("aten::")) / steps)
     if busy_ms > 0:
         # the profiler slows the host, not the kernels: idle share against
         # the unprofiled pace
@@ -758,10 +772,9 @@ def lm_step_timing(model, dev, card, steps: int = 5) -> dict:
           f"profiler), device busy {busy_ms:.3f} ms, idle share {idle}, "
           f"{out['launches_per_step']:.0f} kernel launches and "
           f"{out['aten_calls_per_step']:.0f} aten calls per step; on {card}")
-    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:8]:
-        print(f"[lm]   kernel {e.self_device_time_total / steps:9.1f} us/step "
-              f"{e.count / steps:5.0f} calls/step  {e.key[:80]}")
+    for k_ms, calls, name in top[:8]:
+        print(f"[lm]   kernel {k_ms * 1e3 / steps:9.1f} us/step "
+              f"{calls / steps:5.0f} calls/step  {name[:80]}")
     return out
 
 
@@ -844,13 +857,6 @@ BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core rate
 G_RTOL, G_ATOL = 5e-4, 5e-5  # tests/test_pipeline_parallel.py:54-55
 TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "build", "train_checkpoints")
-
-
-def kernel_events(prof):
-    """The profiler's device kernels (no user annotations)."""
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.is_user_annotation and e.self_device_time_total > 0]
 
 
 def train_flops(cfg, model, B, S) -> tuple:
@@ -943,24 +949,40 @@ def train_full_width(cfg, counted, dev, card) -> dict:
     return out, model
 
 
+def device_kernels(prof):
+    """(busy ms, launches, [(ms, calls, name)] costliest first) of the
+    profiler's device kernels, summed from its raw events: building the
+    per-event records that `key_averages` reads takes minutes for a step
+    of a million launches."""
+    by = {}
+    for e in prof.profiler.kineto_results.events():
+        annotation = getattr(e, "is_user_annotation", None)
+        if e.device_type() == torch.autograd.DeviceType.CUDA \
+                and not (annotation and annotation()) \
+                and e.duration_ns() > 0:
+            t = by.setdefault(e.name(), [0, 0])
+            t[0] += e.duration_ns()
+            t[1] += 1
+    top = sorted(((ns / 1e6, n, name) for name, (ns, n) in by.items()),
+                 reverse=True)
+    return sum(t[0] for t in top), sum(t[1] for t in top), top
+
+
 def profiled_step(run, state, ms, tag, card) -> dict:
-    """One more train step `run()` under `torch.profiler`: its device busy
-    time, the idle share against the unprofiled `ms` per step, kernel
-    launches and the costliest kernels. The step's new optimizer state
-    goes back into `state`."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    """One more train step `run()` under `torch.profiler`, recording the
+    device's activity only: its device busy time, the idle share against
+    the unprofiled `ms` per step, kernel launches and the costliest
+    kernels. The step's new optimizer state goes back into `state`."""
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state.opt_state, state.comp_state, met = run()
         float(met["loss"])
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
-    kernels = kernel_events(prof)
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    out = dict(profiled_ms=prof_ms,
-               launches_per_step=sum(e.count for e in kernels))
+    busy, launches, top = device_kernels(prof)
+    out = dict(profiled_ms=prof_ms, launches_per_step=launches)
     if busy > 0:
         out.update(device_ms=busy, idle_share=1.0 - busy / ms)
         idle = f"{out['idle_share']:.3f}"
@@ -968,12 +990,10 @@ def profiled_step(run, state, ms, tag, card) -> dict:
         idle = "not measured (the profiler saw no device time)"
     print(f"[{tag}] one step under torch.profiler: {prof_ms:.1f} ms, device "
           f"busy {busy:.1f} ms, idle share {idle} (against the unprofiled "
-          f"{ms:.1f} ms), {out['launches_per_step']} kernel launches; on "
-          f"{card}")
-    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:8]:
-        print(f"[{tag}]   kernel {e.self_device_time_total / 1e3:9.2f} ms "
-              f"{e.count:6d} calls  {e.key[:80]}")
+          f"{ms:.1f} ms), {launches} kernel launches; on {card}")
+    for k_ms, calls, name in top[:8]:
+        print(f"[{tag}]   kernel {k_ms:9.2f} ms {calls:6d} calls  "
+              f"{name[:80]}")
     return out
 
 
@@ -1417,31 +1437,218 @@ def dist_two_cards(single, card) -> dict:
     return {"ranks": 2, "final_loss": last, "wall_s": wall}
 
 
-def train_dist_phase(cfg, counted, dev, card, single) -> dict:
-    """Phase 13: multi-device training on a world of one rank over NCCL
-    (a TCP rendezvous on 127.0.0.1), destroyed at the end: the full-width
-    run, the MoE layer through `moe_apply_ep`, the elastic round trip and,
-    with two cards, a world of 2. Checkpoints go to build/train_dist,
-    emptied before and after."""
+@contextlib.contextmanager
+def world_of_one(dev):
+    """An NCCL world of one rank (gloo on the CPU) over a TCP rendezvous
+    on 127.0.0.1, and its (1, 1) ("data", "model") grid on `dev`;
+    destroyed on exit."""
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import device_mesh, init_distributed, \
-        make_mesh
-    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    from repro_torch.launch.mesh import init_distributed, make_mesh
     init_distributed("nccl" if dev.type == "cuda" else "gloo",
                      f"tcp://127.0.0.1:{free_port()}", 0, 1)
     try:
-        grid = make_mesh((1, 1), ("data", "model"), [dev])
+        yield make_mesh((1, 1), ("data", "model"), [dev])
+    finally:
+        dist.destroy_process_group()
+
+
+def train_dist_phase(cfg, counted, dev, card, single, grid) -> dict:
+    """Phase 13, on `grid` (`world_of_one`): the full-width run, the MoE
+    layer through `moe_apply_ep` and the elastic round trip. Checkpoints
+    go to build/train_dist, emptied before and after."""
+    from repro_torch.launch.mesh import device_mesh
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    try:
         out = dist_full_width(cfg, grid, counted, dev, card, single)
         torch.cuda.empty_cache()
         out["moe"] = dist_moe_layer(device_mesh(grid), dev, card)
         torch.cuda.empty_cache()
         out["elastic"] = dist_elastic(grid, dev, card)
     finally:
-        dist.destroy_process_group()
         shutil.rmtree(DIST_DIR, ignore_errors=True)
-    out["two_cards"] = dist_two_cards(single, card)
-    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    return out
+
+
+REC_TRAIN, REC_PREFILL = "xlstm-1.3b", "recurrentgemma-9b"
+# train_4k's 4,096 cut to 256: sLSTM runs one step of its cell per token
+REC_SEQ, REC_BATCH, REC_MICRO, REC_STEPS = 256, 8, 2, 3
+REC_PREFILL_SEQ = 2048
+REC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "recurrent")
+
+
+def recurrent_train(cfg, grid, counted, dev, card) -> dict:
+    """Phase 14 (a): xlstm-1.3b's published config (48 alternating mLSTM /
+    sLSTM layers, d_model 2048, 4 heads, vocab 50,304, bf16, from a seeded
+    generator) trained through `train.loop.train` on the card (AdamW, remat
+    "full", seq REC_SEQ, global batch REC_BATCH in REC_MICRO microbatches,
+    REC_STEPS steps, no checkpoint), then the same run on `grid` with FSDP,
+    where the recurrent forms run on their local shards: each grid loss
+    within rtol 5e-4 of the card's. Ms per step of both, peak memory, and
+    one more card step under the profiler. No CMAX kernel may launch."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data import lm as lm_data
+    from repro_torch.train import loop
+
+    def run(where, **kw):
+        tc = loop.TrainConfig(steps=REC_STEPS, ckpt_dir=os.path.join(
+            REC_DIR, where), ckpt_every=0, log_every=1, seed=0,
+            optimizer="adamw", microbatch=REC_MICRO, **kw)
+        data = lm_data.batches(lm_data.LMDataConfig(
+            cfg.vocab_size, REC_SEQ, REC_BATCH, seed=0))
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        hist = loop.train(cfg, tc, grid if kw else dev, data,
+                          max_len=REC_SEQ)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counted}
+        check(all(n == 0 for n in launches.values()),
+              f"recurrent training launched a CMAX kernel: {launches}")
+        losses = hist["loss"]
+        check(len(losses) == REC_STEPS and all(np.isfinite(losses)),
+              f"losses {losses}")
+        res = dict(losses=losses, step_ms=[t * 1e3 for t in
+                                           hist["step_time"]],
+                   ms_per_step=float(np.median(hist["step_time"][1:]))
+                   * 1e3, peak_gb=torch.cuda.max_memory_allocated(dev)
+                   / 1e9, wall_s=wall)
+        return res, hist["state"], tc, data
+
+    shutil.rmtree(REC_DIR, ignore_errors=True)
+    try:
+        one, state, tc, data = run("card")
+        model = state.params
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"[recurrent] {cfg.name} {cfg.dtype}: {n_params} parameters, "
+              f"AdamW (f32 moments), remat full, seq {REC_SEQ}, global "
+              f"batch {REC_BATCH} in {REC_MICRO} microbatches, {REC_STEPS} "
+              f"steps on the card in {one['wall_s']:.2f} s: losses "
+              f"{[round(x, 6) for x in one['losses']]}; "
+              f"{one['ms_per_step']:.1f} ms per step (median of steps 2-"
+              f"{REC_STEPS}; each {[round(x) for x in one['step_ms']]} ms), "
+              f"{REC_BATCH * REC_SEQ / one['ms_per_step'] * 1e3:.0f} "
+              f"tokens/s; peak memory {one['peak_gb']:.2f} GB; on {card}")
+        step = loop.make_step(cfg, tc, dev)
+        toks, labels = next(data)
+        batch = {"tokens": torch.as_tensor(toks, device=dev),
+                 "labels": torch.as_tensor(labels, device=dev)}
+        one.update(profiled_step(lambda: step(model, state.opt_state,
+                                              state.comp_state, batch),
+                                 state, one["ms_per_step"], "recurrent",
+                                 card))
+        del model, state, step, batch
+        torch.cuda.empty_cache()
+
+        on_grid, gstate, _, _ = run("grid", fsdp=True)
+        check(all(isinstance(p, DTensor) for p in gstate.params.parameters()),
+              "the grid run's parameters are not all DTensors")
+        del gstate
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(REC_DIR, ignore_errors=True)
+    got, want = np.array(on_grid["losses"]), np.array(one["losses"])
+    rel = np.abs(got - want) / np.abs(want)
+    ratio = on_grid["ms_per_step"] / one["ms_per_step"]
+    print(f"[recurrent] {cfg.name} on a (1, 1) ('data', 'model') grid, NCCL "
+          f"world of 1, FSDP, the recurrent forms on local shards; "
+          f"{REC_STEPS} steps in {on_grid['wall_s']:.2f} s: losses "
+          f"{[round(x, 6) for x in on_grid['losses']]}: largest relative "
+          f"difference from the card's {rel.max():.3e} (rtol {G_RTOL}), "
+          f"{'bitwise' if np.array_equal(got, want) else 'not bitwise'}; "
+          f"{on_grid['ms_per_step']:.1f} ms per step (each "
+          f"{[round(x) for x in on_grid['step_ms']]} ms) against the "
+          f"card's {one['ms_per_step']:.1f} ({ratio:.3f}x); peak memory "
+          f"{on_grid['peak_gb']:.2f} GB; on {card}")
+    check(bool(np.allclose(got, want, rtol=G_RTOL, atol=0.0)),
+          f"grid losses {got} differ from the card's {want}")
+    return dict(n_params=n_params, card=one, grid=on_grid,
+                loss_rel=rel.tolist(), ratio=ratio)
+
+
+def recurrent_prefill(cfg, grid, counted, dev, card) -> dict:
+    """Phase 14 (b): recurrentgemma-9b's published config (38 layers of
+    RG-LRU, RG-LRU, local attention; d_model 4096, bf16, from a seeded
+    generator on the card) prefilled through `make_prefill_step` at 1 x
+    REC_PREFILL_SEQ tokens, plainly and on `grid`: the grid's last-position
+    logits within rtol 5e-4 / atol 5e-5 of the plain ones, greedy next
+    tokens equal. Ms of each (median of three). No CMAX kernel."""
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models import make_prefill_step
+    from repro_torch.models import transformer as tt
+    from repro_torch.sharding import distribute_batch, distribute_model
+    for fn in counted:
+        fn.launches = 0
+    model = tt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           max_len=REC_PREFILL_SEQ, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, REC_PREFILL_SEQ)), device=dev)
+
+    def timed(step, m, b):
+        times, out = [], None
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(m, b)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, float(np.median(times)), times
+
+    plain, ms, each = timed(make_prefill_step(cfg), model,
+                            {"tokens": toks})
+    mesh = device_mesh(grid)
+    distribute_model(model, mesh)
+    b = distribute_batch({"tokens": toks}, mesh)
+    gl, gms, geach = timed(make_prefill_step(cfg, mesh=mesh), model, b)
+    gl = gl.full_tensor()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    check(all(n == 0 for n in launches.values()),
+          f"the recurrent prefill launched a CMAX kernel: {launches}")
+    check(tuple(plain.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(plain).all()), "bad prefill logits")
+    err = float((gl - plain).abs().max())
+    bitwise = bool(torch.equal(gl, plain))
+    same_tok = bool(torch.equal(gl.argmax(-1), plain.argmax(-1)))
+    print(f"[recurrent] {cfg.name} {cfg.dtype}: {n_params} parameters, "
+          f"prefill of 1 x {REC_PREFILL_SEQ} tokens: {ms:.1f} ms (each "
+          f"{[round(x, 1) for x in each]}); on the (1, 1) grid "
+          f"{gms:.1f} ms (each {[round(x, 1) for x in geach]}, "
+          f"{gms / ms:.3f}x); last-position logits max abs difference "
+          f"{err:.3e} ({'bitwise' if bitwise else 'not bitwise'}), greedy "
+          f"next token equal {same_tok}; on {card}")
+    check(bool(torch.allclose(gl, plain, rtol=G_RTOL, atol=G_ATOL)),
+          f"grid prefill logits differ from the plain ones by {err}")
+    check(same_tok, "greedy next tokens differ")
+    del model
+    torch.cuda.empty_cache()
+    return dict(n_params=n_params, ms=ms, grid_ms=gms, ratio=gms / ms,
+                max_abs_err=err, bitwise=bitwise)
+
+
+def recurrent_phase(grid, counted, dev, card) -> dict:
+    """Phase 14: the recurrent sequence forms at full width, on the card
+    and on `grid` (13's world of one)."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    cfg = get_config(REC_TRAIN)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.vocab_size,
+           cfg.dtype, cfg.block_pattern)
+          == (48, 2048, 4, 50304, "bfloat16", ("mlstm", "slstm")),
+          f"{REC_TRAIN} is not its published config")
+    out = {"train": recurrent_train(cfg, grid, counted, dev, card)}
+    torch.cuda.empty_cache()
+    cfg = get_config(REC_PREFILL)
+    check((cfg.n_layers, cfg.d_model, cfg.dtype, cfg.block_pattern)
+          == (38, 4096, "bfloat16", ("rglru", "rglru", "local")),
+          f"{REC_PREFILL} is not its published config")
+    out["prefill"] = recurrent_prefill(cfg, grid, counted, dev, card)
+    out["phase_s"] = time.perf_counter() - t0
     return out
 
 
@@ -1489,7 +1696,7 @@ def finish(proc, what: str, timeout: float = 600) -> str:
 
 
 def roofline_phase(cfg, train, lm, timing, card) -> dict:
-    """Phase 14: the roofline's machine balance against the card, the dry
+    """Phase 15: the roofline's machine balance against the card, the dry
     run of [train]'s cell against [train]'s measurements, the decode
     roofline beside [lm]'s step, [timing]'s kernel shares (through
     `roofline.kernel_roofline`) against a recount, and the dry-run and
@@ -2435,13 +2642,20 @@ def main() -> int:
     print(f"[train] {json.dumps(train)}")
     torch.cuda.empty_cache()
 
-    # ---- 13. multi-device training on a world of 1 (no CMAX kernel) ----
-    t_dist = time.perf_counter()
-    dist_out = train_dist_phase(lm_cfg, counted, dev, card, train)
-    dist_out["phase_s"] = time.perf_counter() - t_dist
+    # ---- 13-14. multi-device training on a world of 1, then the
+    # recurrent forms on the card and on its grid (no CMAX kernel) ----
+    with world_of_one(dev) as grid:
+        t_dist = time.perf_counter()
+        dist_out = train_dist_phase(lm_cfg, counted, dev, card, train, grid)
+        dist_out["phase_s"] = time.perf_counter() - t_dist
+        torch.cuda.empty_cache()
+        recurrent = recurrent_phase(grid, counted, dev, card)
+    dist_out["two_cards"] = dist_two_cards(train, card)
     print(f"[train-dist] {json.dumps(dist_out)}")
+    print(f"[recurrent] {json.dumps(recurrent)}")
+    torch.cuda.empty_cache()
 
-    # ---- 14. the roofline and the dry run against the measurements ----
+    # ---- 15. the roofline and the dry run against the measurements ----
     roofline = roofline_phase(lm_cfg, train, lm, {
         "megakernel_stats": per_stage, "tile_accumulate": tile_rows,
         "blur_stats_streaming": blur_rows}, card)

@@ -6,14 +6,14 @@ from .geometry import WarpOut, rotational_flow, warp_events, warp_points
 from .iwe import accumulate, build_iwe, build_iwe_only, event_deltas
 from .contrast import (blur_separable, gaussian_taps, objective_direct,
                        objective_streaming, stats_to_objective,
-                       streaming_stats)
+                       streaming_stats, variance_of)
 from .sorting import SortTables, retained_window, sort_events, stage_policy
 from .adaptive import (BudgetedGainThresholdController,
                        GainThresholdController, gain, should_stay)
 from . import cgpr, energy
 from .pipeline import (StageTrace, WindowResult, estimate_batch,
-                       estimate_batch_budgeted, estimate_sequence,
-                       estimate_streams, estimate_window,
+                       estimate_batch_budgeted, estimate_batch_donated,
+                       estimate_sequence, estimate_streams, estimate_window,
                        estimate_window_budgeted, estimate_windows_parallel,
                        make_engine_pass)
 
@@ -24,11 +24,13 @@ __all__ = [
     "accumulate", "build_iwe", "build_iwe_only", "event_deltas",
     "blur_separable", "gaussian_taps", "objective_direct",
     "objective_streaming", "stats_to_objective", "streaming_stats",
+    "variance_of",
     "SortTables", "retained_window", "sort_events", "stage_policy",
     "BudgetedGainThresholdController", "GainThresholdController",
     "gain", "should_stay", "cgpr", "energy",
     "StageTrace", "WindowResult", "estimate_batch",
-    "estimate_batch_budgeted", "estimate_sequence", "estimate_streams",
+    "estimate_batch_budgeted", "estimate_batch_donated",
+    "estimate_sequence", "estimate_streams",
     "estimate_window", "estimate_window_budgeted",
     "estimate_windows_parallel", "make_engine_pass",
 ]

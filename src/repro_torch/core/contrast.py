@@ -102,3 +102,11 @@ def objective_streaming(channels: torch.Tensor, taps: torch.Tensor
     stats = streaming_stats(channels, taps)
     return stats_to_objective(stats,
                               channels.shape[-1] * channels.shape[-2])
+
+
+def variance_of(img: torch.Tensor, num_taps: int, sigma: float
+                ) -> torch.Tensor:
+    """Convenience: Var(G_sigma * img) for a bare (H, W) image (the
+    population variance of the separable blur, as `jnp.var`)."""
+    taps = gaussian_taps(num_taps, sigma, img.dtype, device=img.device)
+    return torch.var(blur_separable(img, taps), correction=0)

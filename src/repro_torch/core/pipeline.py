@@ -419,6 +419,19 @@ def estimate_batch(windows: EventWindow, omega0s: torch.Tensor,
     return estimate_windows_parallel(windows, omega0s, cfg)
 
 
+def estimate_batch_donated(windows: EventWindow, omega0s: torch.Tensor,
+                           cfg: CmaxConfig) -> WindowResult:
+    """`estimate_batch` under the reference's name for its donated form.
+
+    PyTorch donates no buffer, so this aliases `estimate_batch`: the same
+    computation and the same results, bit for bit, with the warm starts
+    left as they were. Donation gains a meaning once static per-class
+    input buffers exist (ROADMAP Queue 2 item 1); until then the async
+    service's executable is this function where the reference's donates
+    its (B, 3) warm-start buffer."""
+    return estimate_batch(windows, omega0s, cfg)
+
+
 def estimate_streams(windows: EventWindow, omega_inits: torch.Tensor,
                      cfg: CmaxConfig) -> Tuple[torch.Tensor, WindowResult]:
     """Warm-start-chained estimation of S independent streams.

@@ -7,9 +7,13 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b \\
       --shape train_4k --mesh single
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both \\
-      --out results/dryrun
+      --out results/dryrun_torch
 Each cell writes <out>/<arch>__<shape>__<mesh>.json with the reference's
-keys, so that `roofline.summarize_cell` and `roofline.report` read it.
+keys, so that `roofline.summarize_cell` and `roofline.report` read it, and
+`torch_version`, which marks it as the port's: the default directory is
+the port's own (`results/dryrun_torch`, beside the reference's
+`results/dryrun`), and a record without `torch_version` is never read
+back as the port's.
 
 How a cell runs. The group is `torch.distributed`'s "fake" backend
 (`FakeStore`): every collective returns at once and moves nothing. The
@@ -526,14 +530,19 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: Path,
     """One cell on the production mesh of `mesh_kind` ("single" or
     "multi"; or on `mesh`, tagged `mesh_kind`), recorded in
     <out_dir>/<arch>__<shape>__<mesh_kind><tag_suffix>.json. A cell whose
-    record exists is read back unless `force`. A failure is recorded
+    record exists is read back unless `force`, or unless the record has no
+    `torch_version` (the reference's dry run writes the same names): then
+    the cell runs and its record replaces that one. A failure is recorded
     ("error") and returned, not raised."""
     tag = f"{arch}__{shape_name}__{mesh_kind}{tag_suffix}"
     out_file = out_dir / f"{tag}.json"
     if out_file.exists() and not force:
         rec = json.loads(out_file.read_text())
-        print(f"[cached] {tag}: {rec.get('status')}")
-        return rec
+        if "torch_version" in rec:
+            print(f"[cached] {tag}: {rec.get('status')}")
+            return rec
+        print(f"[rerun] {tag}: the record in {out_dir} has no "
+              f"torch_version (not the port's)")
     if mesh is None:
         mesh = production_mesh(multi_pod=(mesh_kind == "multi"))
     rec = {"cell": tag, "mesh": list(mesh.shape),
@@ -573,7 +582,7 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default="single",
                     choices=["single", "multi", "both"])
     ap.add_argument("--all", action="store_true")
-    ap.add_argument("--out", default="results/dryrun")
+    ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)
 

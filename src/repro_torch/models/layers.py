@@ -456,6 +456,70 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _sdpa(q, k, v, mask)
 
 
+class _Grid:
+    """Where the local form of a DTensor activation x (B, S, ...) runs:
+    its batch rows over the data-parallel axes ("pod", "data") where B
+    divides them (a batch of one stays whole: DTensor cannot flatten a
+    sharded dimension of size 1), and its `width` heads or channels over
+    "model" where `width` divides it (the reference's divisibility rule),
+    else whole. `first` and `n_loc` are this rank's heads or channels."""
+
+    def __init__(self, x, width: int):
+        mesh = x.device_mesh
+        names = mesh.mesh_dim_names
+        dp = [i for i, n in enumerate(names) if n in ("pod", "data")]
+        rows = x.shape[0] > 1 and \
+            x.shape[0] % math.prod(mesh.size(i) for i in dp) == 0
+        self.mesh = mesh
+        self.rows = [i in dp and rows for i in range(len(names))]
+        self.split = [n == "model" and width % mesh.size(i) == 0
+                      for i, n in enumerate(names)]
+        self.first, self.n_loc = 0, width
+        for i, on in enumerate(self.split):
+            if on:
+                self.n_loc = width // mesh.size(i)
+                self.first = mesh.get_local_rank(i) * self.n_loc
+
+    def placements(self, dim: int):
+        """Rows over the data axes, dimension `dim` over "model"."""
+        from torch.distributed.tensor import Replicate, Shard
+        return [Shard(0) if r else Shard(dim) if c else Replicate()
+                for r, c in zip(self.rows, self.split)]
+
+    def local(self, t, dim: int) -> torch.Tensor:
+        """DTensor t (B, S, ...) placed for the local form, as a plain
+        tensor: each shard's gradient is its own."""
+        return t.redistribute(placements=self.placements(dim)).to_local()
+
+    def whole(self, t) -> torch.Tensor:
+        """DTensor t (B, S, ...) with this rank's rows and all of its
+        channels, as a plain tensor. Where the ranks of "model" each keep
+        their own heads or channels of what is computed from it, each
+        one's gradient for it is a partial sum."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        pl = [Shard(0) if r else Replicate() for r in self.rows]
+        grad = [Partial() if c else p for p, c in zip(pl, self.split)]
+        return t.redistribute(placements=pl).to_local(grad_placements=grad)
+
+    def param(self, w, dim: int) -> torch.Tensor:
+        """Parameter w as the local form reads it: its dimension `dim`
+        split over "model" as the heads or channels are, whole elsewhere.
+        Where the rows are split, each rank's gradient is a partial sum."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        pl = [Shard(dim) if c else Replicate() for c in self.split]
+        grad = [Partial() if r else p for p, r in zip(pl, self.rows)]
+        return w.redistribute(placements=pl).to_local(grad_placements=grad)
+
+    def dtensor(self, t: torch.Tensor, shape, dim: int):
+        """Local result t back as a DTensor of global `shape`, its rows
+        and dimension `dim` placed as the local form ran them."""
+        from torch.distributed.tensor import DTensor
+        shape = torch.Size(shape)
+        return DTensor.from_local(
+            t, self.mesh, self.placements(dim), run_check=False,
+            shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+
 def _sharded_attention(p: Attention, x, kv_x, cfg: ModelConfig, kind: str,
                        positions: Optional[torch.Tensor]):
     """`attention_apply` of DTensor activations, Megatron-style: each rank
@@ -464,7 +528,8 @@ def _sharded_attention(p: Attention, x, kv_x, cfg: ModelConfig, kind: str,
     The projections run as DTensors (the weights' FSDP and TP shards are
     DTensor's to resolve); q, k and v are then placed with the batch over
     the data-parallel axes and the heads over "model" where the head count
-    divides it (the reference's divisibility rule), and taken local. No
+    divides it (`_Grid`, the reference's divisibility rule), and taken
+    local. No
     DTensor op runs inside: DTensor has no sharding rule for einsum's
     flattening of a batch dim and a head dim that are both sharded, and
     RoPE and the masks are plain tensors. Where the KV heads stay whole
@@ -472,20 +537,11 @@ def _sharded_attention(p: Attention, x, kv_x, cfg: ModelConfig, kind: str,
     heads read, and its share of their gradient is a partial sum. The
     output comes back as a DTensor with the query's placements for the
     row-parallel `wo`."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor import DTensor, Partial, Shard
     x, kv_x = seq_gathered(x), seq_gathered(kv_x)
-    mesh = x.device_mesh
-    names = mesh.mesh_dim_names
     hd, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    dp = [i for i, n in enumerate(names) if n in ("pod", "data")]
-    rows = x.shape[0] % math.prod(mesh.size(i) for i in dp) == 0
-
-    def placements(heads):
-        return [Shard(0) if i in dp and rows else
-                Shard(2) if n == "model" and heads % mesh.size(i) == 0
-                else Replicate() for i, n in enumerate(names)]
-
-    q_pl, kv_pl = placements(H), placements(Hkv)
+    q_grid = _Grid(x, H)
+    q_pl, kv_pl = q_grid.placements(2), _Grid(x, Hkv).placements(2)
     kv_grad = [Partial() if qp == Shard(2) and kp != Shard(2) else kp
                for qp, kp in zip(q_pl, kv_pl)]
 
@@ -503,7 +559,7 @@ def _sharded_attention(p: Attention, x, kv_x, cfg: ModelConfig, kind: str,
     if k.shape[2] == Hkv and hq != H:
         # whole KV heads, this rank's query heads [r*hq, (r+1)*hq)
         g = H // Hkv
-        first = mesh.get_local_rank(names.index("model")) * hq
+        first = q_grid.first
         if hq % g == 0 or g % hq == 0:
             # a contiguous run of KV heads, found on the host
             k, v = (t[:, :, first // g:(first + hq - 1) // g + 1]
@@ -512,7 +568,7 @@ def _sharded_attention(p: Attention, x, kv_x, cfg: ModelConfig, kind: str,
             kv = (first + torch.arange(hq, device=q.device)) // g
             k, v = k[:, :, kv], v[:, :, kv]
     out = _attend(q, k, v, cfg, kind, positions).flatten(-2)
-    out = DTensor.from_local(out, mesh, q_pl, run_check=False)
+    out = DTensor.from_local(out, q_grid.mesh, q_pl, run_check=False)
     return out @ p.wo
 
 

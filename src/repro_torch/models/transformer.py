@@ -128,18 +128,18 @@ class Block(nn.Module):
         if kind in ("mlstm", "slstm"):
             xn = self.ln1(x)
             if cache is None:
-                return x + self.cell(xn), None
+                return _residual(x, self.cell(xn)), None
             h, cache = self.cell.step(xn, cache)
             return x + h, cache
 
         # rglru
         xn = self.ln1(x)
         if cache is None:
-            x = x + self.rec(xn)
+            x = _residual(x, self.rec(xn))
         else:
             h, cache = self.rec.step(xn, cache)
             x = x + h
-        return x + self.ffn(self.ln2(x)), cache
+        return _residual(x, self.ffn(self.ln2(x))), cache
 
 
 def _residual(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

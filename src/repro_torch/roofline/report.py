@@ -1,15 +1,19 @@
 """Render the dry-run and roofline tables from the dry-run JSON records
 (counterpart of `repro.roofline.report`).
 
-    PYTHONPATH=src python -m repro_torch.roofline.report --dir results/dryrun
+    PYTHONPATH=src python -m repro_torch.roofline.report \
+        --dir results/dryrun_torch
 
 The "fits" column holds args + temp per device against `HW.hbm_per_chip`
-(the card's device memory), not a fixed size.
+(the card's device memory), not a fixed size. Only the port's records are
+read: one without `torch_version` (the reference's dry run writes the
+same file names) is skipped, and the count skipped is printed to stderr.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 from pathlib import Path
 from typing import Optional
 
@@ -35,12 +39,22 @@ def fmt_s(t):
 
 
 def load_records(d: Path, mesh: str | None = None):
-    recs = []
+    """The port's dry-run records in `d` (of `mesh` only, if given), in
+    file-name order. Records without `torch_version` are not the port's:
+    they are skipped, and said so once."""
+    recs, foreign = [], []
     for f in sorted(d.glob("*.json")):
         r = json.loads(f.read_text())
         if mesh and not r["cell"].endswith("__" + mesh):
             continue
+        if "torch_version" not in r:
+            foreign.append(f.name)
+            continue
         recs.append(r)
+    if foreign:
+        print(f"[report] skipped {len(foreign)} record(s) in {d} without "
+              f"torch_version, not the port's (first: {foreign[0]})",
+              file=sys.stderr)
     return recs
 
 
@@ -126,7 +140,7 @@ def pick_hillclimb(recs, hw: Optional[HW] = None):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--dir", default="results/dryrun")
+    ap.add_argument("--dir", default="results/dryrun_torch")
     ap.add_argument("--mesh", default="single")
     args = ap.parse_args(argv)
     recs = load_records(Path(args.dir), args.mesh)

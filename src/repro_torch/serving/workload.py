@@ -240,13 +240,14 @@ class CmaxWorkload(Workload):
         return ev_batch, om_batch, n_fill
 
     def executable(self, bucket_n, batch_b, *, budgeted=False, donate=True):
-        """The batch function of one class. PyTorch has no buffer
-        donation, so `donate` selects nothing: both values give
-        `estimate_batch` (the argument stays so the services' calls match
-        the reference's). The port runs eagerly, so there is nothing to
-        compile; the service's cache and `compiles` counter track the
+        """The batch function of one class: `estimate_batch_donated` for
+        `donate` (the async service's), else `estimate_batch`, as the
+        reference's. PyTorch donates no buffer, so the two give the same
+        results bit for bit. The port runs eagerly, so there is nothing
+        to compile; the service's cache and `compiles` counter track the
         classes built."""
-        from ..core.pipeline import estimate_batch, estimate_batch_budgeted
+        from ..core.pipeline import (estimate_batch, estimate_batch_budgeted,
+                                     estimate_batch_donated)
 
         cfg = self.cfg
         if self.mesh is not None:
@@ -256,6 +257,8 @@ class CmaxWorkload(Workload):
         if budgeted:
             return lambda w, o, caps: estimate_batch_budgeted(w, o, caps,
                                                               cfg)
+        if donate:
+            return lambda w, o: estimate_batch_donated(w, o, cfg)
         return lambda w, o: estimate_batch(w, o, cfg)
 
     # -- QoS budgets ---------------------------------------------------------

@@ -364,10 +364,18 @@ def distribute_model(model, mesh, fsdp: bool = False):
 
 def distribute_batch(batch: Mapping[str, object], mesh) -> Dict[str, object]:
     """Each input of `batch` (the same whole tensors on every rank) as a
-    DTensor on `mesh`, placed by `batch_specs`: a local slice."""
+    DTensor on `mesh`, placed by `batch_specs`: a local slice. A dimension
+    of size 1 (a batch of one) stays whole, as `models.layers._Grid` keeps
+    it: there is nothing to split, and DTensor cannot flatten a sharded
+    dimension of size 1 into a product."""
+    from torch.distributed.tensor import Replicate, Shard
     specs = batch_specs(batch, mesh)
-    return {k: place(v, mesh, to_placements(specs[k], mesh))
-            for k, v in batch.items()}
+    out = {}
+    for k, v in batch.items():
+        pl = [Replicate() if isinstance(p, Shard) and v.shape[p.dim] == 1
+              else p for p in to_placements(specs[k], mesh)]
+        out[k] = place(v, mesh, pl)
+    return out
 
 
 def distribute_cache(cache, cfg: ModelConfig, mesh):

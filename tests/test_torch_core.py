@@ -154,6 +154,18 @@ def test_contrast_matches_reference(k, sigma):
     _close(np.asarray(ga), gb.numpy())
 
 
+@pytest.mark.parametrize("k,sigma", [(3, 0.5), (5, 0.75), (9, 1.0)])
+def test_variance_of_matches_reference(k, sigma):
+    """Var of the blurred bare image at the engine pass's variance bar,
+    rtol 1e-4 (`tests/test_megakernel.py:80-84`)."""
+    img = np.random.default_rng(10 + k).normal(size=(23, 31)).astype(
+        np.float32)
+    want = np.asarray(R.contrast.variance_of(jnp.asarray(img), k, sigma))
+    got = T.variance_of(torch.tensor(img), k, sigma)
+    assert got.shape == () and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4)
+
+
 def test_streaming_stats_batched_equals_per_window():
     rng = np.random.default_rng(5)
     ch = torch.tensor(rng.normal(size=(3, 4, 12, 16)).astype(np.float32))

@@ -1,6 +1,7 @@
-"""The port as a package: every module (and the port's examples and
-profile gate) imports with JAX and the reference package blocked, two
-threads that first use a kernel at once run one build
+"""The port as a package: every module (and the port's examples, its
+profile gate, its hill-climb and its EXPERIMENTS generator) imports with
+JAX and the reference package blocked, two threads that first use a
+kernel at once run one build
 (`kernels/_build.py::load`), and launch counts lose no update across
 threads."""
 import os
@@ -19,7 +20,9 @@ ROOT = os.path.dirname(SRC)
 EXTRA = [os.path.join(ROOT, "examples", f"torch_{n}.py")
          for n in ("quickstart", "serve_batch", "adaptive_vs_fixed",
                    "lm_pretrain", "fault_tolerant_train")] + [
-    os.path.join(ROOT, "scripts", "check_torch_profiles.py")]
+    os.path.join(ROOT, "scripts", n) for n in (
+        "check_torch_profiles.py", "torch_perf_hillclimb.py",
+        "torch_gen_experiments.py")]
 
 
 def test_every_module_imports_without_jax_or_the_reference():
@@ -32,7 +35,8 @@ def test_every_module_imports_without_jax_or_the_reference():
             repro_torch.__path__, "repro_torch."))
         for name in names:
             __import__(name)
-        # the examples and the profile gate import only the port too
+        # the examples, the profile gate and the dry-run scripts import
+        # only the port too
         for path in sys.argv[1:]:
             runpy.run_path(path, run_name="imported")
         leaked = [m for m in sys.modules

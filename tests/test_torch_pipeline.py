@@ -99,6 +99,28 @@ def test_estimate_batch_matches_reference(ref, engine):
     _assert_matches(res, ref["batch"])
 
 
+def test_estimate_batch_donated_is_estimate_batch(ref):
+    """The donated form is `estimate_batch` bit for bit on the `reference`
+    engine (PyTorch donates no buffer; the warm starts stay as they were),
+    and it is held to the reference's donated form at ω atol 5e-4 and
+    `v_final` rtol 1e-3 (`tests/test_megakernel.py:168-173`)."""
+    cfg = _tcfg("reference")
+    first, om0 = _win(ref["first"]), torch.tensor(ref["om0"])
+    kept = om0.clone()
+    got = T.estimate_batch_donated(first, om0, cfg)
+    assert torch.equal(om0, kept)
+    plain = T.estimate_batch(first, om0, cfg)
+    assert torch.equal(got.omega, plain.omega)
+    for a, b in zip(got.stages, plain.stages):
+        assert torch.equal(a.v_final, b.v_final)
+        assert torch.equal(a.iters, b.iters)
+        np.testing.assert_array_equal(a.v_history.numpy(),
+                                      b.v_history.numpy())
+    want = jax.device_get(R.estimate_batch_donated(
+        ref["first"], jnp.array(ref["om0"]), _jcfg()))
+    _assert_matches(got, want)
+
+
 @pytest.mark.parametrize("engine", ENGINES)
 def test_estimate_streams_matches_reference(ref, engine):
     om, res = T.estimate_streams(_win(ref["streams"]),

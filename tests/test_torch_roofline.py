@@ -284,10 +284,14 @@ def test_report_renders_port_records(tmp_path, capsys):
     worst, coll = report.pick_hillclimb(recs)
     assert worst["cell"].endswith("train_4k__single")
     assert coll is not None
+    # the port's records carry its torch version (`load_records` skips
+    # any other)
+    version = {"torch_version": torch.__version__}
     for r in recs:
-        (tmp_path / f"{r['cell']}.json").write_text(json.dumps(r))
+        (tmp_path / f"{r['cell']}.json").write_text(json.dumps(
+            dict(r, **version)))
     (tmp_path / "x__train_4k__multi.json").write_text(json.dumps(
-        dict(_record("x__train_4k__multi"))))
+        dict(_record("x__train_4k__multi"), **version)))
     assert len(report.load_records(tmp_path, "single")) == 4
     report.main(["--dir", str(tmp_path), "--mesh", "single"])
     out = capsys.readouterr().out

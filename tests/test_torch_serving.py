@@ -869,15 +869,23 @@ def test_dispatch_executor_runs_in_order_and_reports_done():
     ex.close()
 
 
-def test_workload_batches_on_its_device_and_refuses_a_mesh():
+def test_workload_batches_on_its_device_and_refuses_a_mesh(monkeypatch):
     wl = CmaxWorkload(fast_cfg(), policy=POLICY, device="cpu")
     ps = ragged_streams(small_camera(), 1, 2)["s0"]
     ev, om, n_fill = wl.make_batch(ps, [np.ones(3, np.float32)], 512, 4)
     assert n_fill == 2 and ev.x.shape == (4, 512)
     assert om.shape == (4, 3) and om.device.type == "cpu"
     assert bool((om == 1).all())
-    assert wl.executable(512, 4, donate=True).__code__ is \
-        wl.executable(512, 4, donate=False).__code__
+    # donate gives the donated form, as the reference's executable does
+    from repro_torch.core import pipeline
+    called = []
+    for name in ("estimate_batch", "estimate_batch_donated"):
+        monkeypatch.setattr(pipeline, name,
+                            lambda w, o, c, name=name: called.append(name))
+    wl.executable(512, 4, donate=True)(ev, om)
+    wl.executable(512, 4, donate=False)(ev, om)
+    assert called == ["estimate_batch_donated", "estimate_batch"]
+    monkeypatch.undo()
     # a device grid is served (core/distributed.py), on its first device,
     # and budgeted QoS classes under it are refused
     grid = make_mesh((2, 1), ("data", "model"), devices=["cpu", "cpu"])

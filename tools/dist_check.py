@@ -13,7 +13,9 @@ parameters must agree at rtol 5e-4 / atol 5e-5
 (`tests/test_pipeline_parallel.py:54-55`), as in
 `tests/test_torch_dist_train.py`. The MoE config runs at capacity_factor
 E/k, where no token-expert pair is dropped on one device or on any EP
-shard. Rank 0 prints one line per case: the largest differences, the
+shard. The recurrent configs (xlstm-1.3b, recurrentgemma-9b) run their
+sequence forms on local shards, heads and RG-LRU channels split over
+"model". Rank 0 prints one line per case: the largest differences, the
 collectives of one more step (`sharding.comms.StepCommMode`) and the
 median ms per step of steps 2-3 on the grid and on one device.
 
@@ -24,8 +26,11 @@ model placed by `sharding.distribute_model` and the cache by
 they do not divide it, so the cache's positions split four ways and each
 step merges the partial softmaxes across the ranks
 (`layers._sdpa_merged`). The logits must agree with the single-device
-chain at the same bar and the greedy tokens must be equal. Exits
-non-zero if a case disagrees.
+chain at the same bar and the greedy tokens must be equal. The two
+recurrent configs then run on (2, 2) with sequence-parallel activations:
+the prefill's last-position logits within 2e-5 of one device, and one
+step's loss and gradients at rtol 5e-4 / atol 5e-5. Exits non-zero if a
+case disagrees.
 """
 from __future__ import annotations
 
@@ -48,7 +53,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 RTOL, ATOL = 5e-4, 5e-5
 SEQ, BATCH, STEPS = 16, 4, 3
 CASES = [("llama3.2-1b", {}), ("llama3.2-1b", dict(fsdp=True)),
-         ("deepseek-moe-16b", dict(use_ep=True, fsdp=True))]
+         ("deepseek-moe-16b", dict(use_ep=True, fsdp=True)),
+         ("xlstm-1.3b", {}), ("xlstm-1.3b", dict(fsdp=True)),
+         ("recurrentgemma-9b", {}), ("recurrentgemma-9b", dict(fsdp=True))]
 DECODE_GRIDS = [(2, 2), (1, 4)]
 DECODE_STEPS, DECODE_LEN = 8, 16
 
@@ -113,6 +120,49 @@ def decode_case(shape, dev, devices):
             "ms_per_token": grid_s / DECODE_STEPS * 1e3}
 
 
+def sp_case(arch, dev, devices):
+    """`arch`'s SMOKE config (seed 0) on (2, 2) with sequence-parallel
+    activations (the dry run's layout): the prefill's last-position logits
+    (bar 2e-5, `tests/test_pipeline_parallel.py:44-45`) and one step's
+    loss and gradients against one device."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.lm import LMDataConfig, batches
+    from repro_torch.launch.mesh import device_mesh, make_mesh
+    from repro_torch.models import loss_and_grads, make_prefill_step
+    from repro_torch.models import transformer as tt
+    from repro_torch.sharding import distribute_batch, distribute_model
+    cfg = get_smoke_config(arch)
+    model = tt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           max_len=SEQ, device=dev)
+    toks, labels = next(batches(LMDataConfig(cfg.vocab_size, SEQ, BATCH)))
+    batch = {"tokens": torch.as_tensor(toks, device=dev),
+             "labels": torch.as_tensor(labels, device=dev)}
+    want_lg = make_prefill_step(cfg)(model, batch)
+    want_loss, want = loss_and_grads(model, batch)
+    mesh = device_mesh(make_mesh((2, 2), ("data", "model"), devices))
+    distribute_model(model, mesh)
+    b = distribute_batch(batch, mesh)
+    seq = (Shard(0), Shard(1))
+    lg = make_prefill_step(cfg, mesh=mesh, act_sharding=seq)(
+        model, b).full_tensor()
+    loss, grads = loss_and_grads(model, b, mesh=mesh, act_sharding=seq)
+    ok = bool(torch.allclose(lg, want_lg, rtol=2e-5, atol=2e-5)) and \
+        abs(float(loss) - float(want_loss)) <= ATOL + RTOL * abs(
+            float(want_loss))
+    grad_err = 0.0
+    for n, g in grads.items():
+        a = g.full_tensor()
+        grad_err = max(grad_err, float((a - want[n]).abs().max()))
+        ok = ok and bool(torch.allclose(a, want[n], rtol=RTOL, atol=ATOL))
+    return {"case": "sequence-parallel prefill and gradients", "arch": arch,
+            "grid": [2, 2], "ok": ok,
+            "logits_max_abs_err": float((lg - want_lg).abs().max()),
+            "loss_abs_err": abs(float(loss) - float(want_loss)),
+            "grad_max_abs_err": grad_err}
+
+
 def rank_main(rank, world, init, device_type, tmp):
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.mesh import init_distributed, make_mesh
@@ -174,6 +224,12 @@ def rank_main(rank, world, init, device_type, tmp):
                 print(json.dumps(line), flush=True)
             if not line["ok"]:
                 bad.append(f"decode on {shape}")
+        for arch in ("xlstm-1.3b", "recurrentgemma-9b"):
+            line = sp_case(arch, dev, devices)
+            if rank == 0:
+                print(json.dumps(line), flush=True)
+            if not line["ok"]:
+                bad.append(f"{arch} sequence-parallel")
     finally:
         torch.distributed.destroy_process_group()
     if bad:
