@@ -29,6 +29,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..telemetry.spans import step
 from . import cgpr
 from .contrast import gaussian_taps, stats_to_objective, streaming_stats
 from .iwe import build_iwe
@@ -237,6 +238,15 @@ def _masked_select(mask: torch.Tensor, new, old):
     return type(new)(*vals) if hasattr(new, "_fields") else type(new)(vals)
 
 
+def _stop_flag(carry, cap: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+    """The lockstep's stop test on a carry: which windows stay active,
+    and whether any does (the one device->host sync of a pass)."""
+    _, _, _, it, done, _ = carry
+    active = (~done) & (it < cap)                          # (B,)
+    with step("stop_sync"):
+        return active, bool(active.any())
+
+
 def _run_stage_batched(ev: EventWindow, omega: torch.Tensor,
                        opt_state: cgpr.CgprState, cam: Camera,
                        stage: StageConfig, cfg: CmaxConfig, stage_idx: int,
@@ -247,59 +257,68 @@ def _run_stage_batched(ev: EventWindow, omega: torch.Tensor,
 
     One shared loop iterates until every window is done; each iteration is
     one batched engine pass, and finished windows keep their carry verbatim
-    (masked no-ops). `iter_cap`, when given, is a (B,) int tensor."""
+    (masked no-ops). `iter_cap`, when given, is a (B,) int tensor. The
+    entry pass and each pass end in the stop test; each opens the step
+    spans of `telemetry.spans.STEP_SPANS` under a service's tracer."""
     B = omega.shape[0]
     dev = omega.device
-    tables = sort_events(ev, omega, cam, stage)
+    with step("sort"):
+        tables = sort_events(ev, omega, cam, stage)
     weights = tables.weights                              # (B, N)
 
-    v_entry, g_entry = engine_b(ev, weights, omega)       # (B,), (B, 3)
+    with step("entry_pass"):
+        v_entry, g_entry = engine_b(ev, weights, omega)   # (B,), (B, 3)
 
-    max_iters = _max_iters(cfg, stage, stage_idx)
-    cap = torch.full((B,), max_iters, dtype=torch.int32, device=dev)
-    if iter_cap is not None:
-        cap = torch.minimum(cap, torch.as_tensor(iter_cap, device=dev)
-                            .to(torch.int32))
+        max_iters = _max_iters(cfg, stage, stage_idx)
+        cap = torch.full((B,), max_iters, dtype=torch.int32, device=dev)
+        if iter_cap is not None:
+            cap = torch.minimum(cap, torch.as_tensor(iter_cap, device=dev)
+                                .to(torch.int32))
 
-    update = cgpr.step if cfg.use_cgpr else cgpr.gradient_ascent_step
-    alpha0 = torch.full((B,), cfg.step_size * stage.step_scale,
-                        dtype=cfg.dtype, device=dev)
-    alpha_floor = alpha0 / 64.0
-    rows = torch.arange(B, device=dev)
-    no = torch.zeros((B,), dtype=torch.bool, device=dev)
+        update = cgpr.step if cfg.use_cgpr else cgpr.gradient_ascent_step
+        alpha0 = torch.full((B,), cfg.step_size * stage.step_scale,
+                            dtype=cfg.dtype, device=dev)
+        alpha_floor = alpha0 / 64.0
+        rows = torch.arange(B, device=dev)
+        no = torch.zeros((B,), dtype=torch.bool, device=dev)
 
-    # hist is updated in place; every other carry leaf is masked-selected
-    hist = torch.full((B, max_iters), float("nan"), dtype=v_entry.dtype,
-                      device=dev)
-    carry = ((omega, opt_state), v_entry, g_entry,
-             torch.zeros((B,), dtype=torch.int32, device=dev), no, alpha0)
-    while True:
-        (om, ost), v_prev, g, it, done, alpha = carry
-        active = (~done) & (it < cap)                      # (B,)
-        if not bool(active.any()):                         # one sync/iter
-            break
-        om_p, ost_p = update(om, g, ost, alpha)            # propose (all B)
-        v_p, g_p = engine_b(ev, weights, om_p)             # ONE batched pass
-        it_c = it.clamp(0, max(max_iters - 1, 0)).long()
-        hist[rows, it_c] = torch.where(active, v_p, hist[rows, it_c])
-        improved = v_p > v_prev
-        om_n = _masked_select(improved, om_p, om)
-        ost_n = _masked_select(improved, ost_p, ost)
-        g_n = _masked_select(improved, g_p, g)
-        if cfg.adaptive:
-            g_norm = (v_p - v_prev) / torch.clamp(torch.abs(v_prev),
-                                                  min=1e-12)
-            done_ok = improved & (g_norm < stage.tau)
-        else:
-            done_ok = no
-        alpha_n = torch.where(improved, alpha, alpha * 0.5)
-        done_stuck = ((~improved) & (alpha_n < alpha_floor)) \
-            if cfg.adaptive else no
-        v_prev_n = torch.where(improved, v_p, v_prev)
-        # finished windows keep their carry verbatim (masked no-op)
-        new = ((om_n, ost_n), v_prev_n, g_n, it + 1, done_ok | done_stuck,
-               alpha_n)
-        carry = _masked_select(active, new, carry)
+        # hist is updated in place; every other carry leaf is
+        # masked-selected
+        hist = torch.full((B, max_iters), float("nan"), dtype=v_entry.dtype,
+                          device=dev)
+        carry = ((omega, opt_state), v_entry, g_entry,
+                 torch.zeros((B,), dtype=torch.int32, device=dev), no,
+                 alpha0)
+        active, more = _stop_flag(carry, cap)
+    while more:
+        with step("pass"):
+            (om, ost), v_prev, g, it, done, alpha = carry
+            with step("propose"):
+                om_p, ost_p = update(om, g, ost, alpha)    # all B
+            with step("engine"):
+                v_p, g_p = engine_b(ev, weights, om_p)     # ONE batched pass
+            with step("select"):
+                it_c = it.clamp(0, max(max_iters - 1, 0)).long()
+                hist[rows, it_c] = torch.where(active, v_p, hist[rows, it_c])
+                improved = v_p > v_prev
+                om_n = _masked_select(improved, om_p, om)
+                ost_n = _masked_select(improved, ost_p, ost)
+                g_n = _masked_select(improved, g_p, g)
+                if cfg.adaptive:
+                    g_norm = (v_p - v_prev) / torch.clamp(torch.abs(v_prev),
+                                                          min=1e-12)
+                    done_ok = improved & (g_norm < stage.tau)
+                else:
+                    done_ok = no
+                alpha_n = torch.where(improved, alpha, alpha * 0.5)
+                done_stuck = ((~improved) & (alpha_n < alpha_floor)) \
+                    if cfg.adaptive else no
+                v_prev_n = torch.where(improved, v_p, v_prev)
+                # finished windows keep their carry verbatim (masked no-op)
+                new = ((om_n, ost_n), v_prev_n, g_n, it + 1,
+                       done_ok | done_stuck, alpha_n)
+                carry = _masked_select(active, new, carry)
+            active, more = _stop_flag(carry, cap)
 
     (om, ost), v_fin, _, iters, _, _ = carry
     trace = StageTrace(iters=iters, passes=iters + 1,
@@ -320,13 +339,14 @@ def _estimate_batch_lockstep(windows: EventWindow, omega0s: torch.Tensor,
     omega = omega0s.to(cfg.dtype)
     traces = []
     for si, stage in enumerate(cfg.stages):
-        engine_b = make_batched_engine_pass(cam, stage, cfg)
-        # CG restarts at each stage, as in the per-window path.
-        opt_state = cgpr.init_state(3, cfg.dtype, device=omega.device,
-                                    batch=(B,))
-        omega, opt_state, tr = _run_stage_batched(
-            windows, omega, opt_state, cam, stage, cfg, si, engine_b,
-            iter_cap=None if iter_caps is None else iter_caps[:, si])
+        with step("stage", stage=si):
+            engine_b = make_batched_engine_pass(cam, stage, cfg)
+            # CG restarts at each stage, as in the per-window path.
+            opt_state = cgpr.init_state(3, cfg.dtype, device=omega.device,
+                                        batch=(B,))
+            omega, opt_state, tr = _run_stage_batched(
+                windows, omega, opt_state, cam, stage, cfg, si, engine_b,
+                iter_cap=None if iter_caps is None else iter_caps[:, si])
         traces.append(tr)
     return WindowResult(omega=omega, stages=tuple(traces))
 

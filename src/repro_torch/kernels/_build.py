@@ -23,6 +23,8 @@ import threading
 from pathlib import Path
 from typing import Dict, List
 
+from ..telemetry.spans import step
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
@@ -88,8 +90,9 @@ def _finish(name: str, started) -> None:
     os.replace(tmp, target)
 
 
-def build_all(names: List[str] = None) -> None:
-    """Compile every kernel source (or `names`) in parallel."""
+def build_all(names: List[str] = None) -> List[str]:
+    """Compile every kernel source (or `names`) in parallel; returns the
+    names that nvcc built (those not built already)."""
     started = {n: _start(n) for n in (names or list(SOURCES))}
     errors = []
     for n, s in started.items():
@@ -101,18 +104,23 @@ def build_all(names: List[str] = None) -> None:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
+    return [n for n, s in started.items() if s is not None]
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, building it at first use."""
+    """The loaded library of kernel `name`, building it at first use (a
+    `kernel_load` step span where a service traces the batch)."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
     with _LOAD_LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build_all([name])
-            lib = ctypes.CDLL(str(_target(name)))
+            with step("kernel_load", kernel=name) as span:
+                built = build_all([name])
+                lib = ctypes.CDLL(str(_target(name)))
+            if span is not None:
+                span.attrs["nvcc"] = bool(built)
             _LIBS[name] = lib
         return lib
 

@@ -44,6 +44,7 @@ from ..core.contrast import gaussian_taps, stats_to_objective
 from ..core.geometry import warp_events
 from ..core.iwe import TAP_OFFSETS, _deterministic, event_deltas
 from ..core.types import Camera, EventWindow
+from ..telemetry.spans import step
 from .blur_stats import blur_stats_streaming
 from .iwe_accum import tile_accumulate
 from .megakernel import megakernel_stats
@@ -155,23 +156,29 @@ def iwe_accum(ev: EventWindow, omega: torch.Tensor, cam: Camera,
     TH, TW = tile
     nty, ntx = -(-Hs // TH), -(-Ws // TW)
     B = ev.x.shape[0]
-    pack = pack_tiles(ev, omega, cam, scale, weights, tile, capacity, dtype)
-    tiles = tile_accumulate(pack.pix, pack.deltas, p_tile=TH * TW)
+    with step("pack_tiles"):
+        pack = pack_tiles(ev, omega, cam, scale, weights, tile, capacity,
+                          dtype)
+    with step("tile_accumulate"):
+        tiles = tile_accumulate(pack.pix, pack.deltas, p_tile=TH * TW)
 
-    # reassemble (B, T, P_TILE, 4) -> (B, 4, nty*TH, ntx*TW)
-    Hp, Wp = nty * TH, ntx * TW
-    img = tiles.reshape(B, nty, ntx, TH, TW, 4).permute(0, 5, 1, 3, 2, 4) \
-        .reshape(B, 4, Hp, Wp)
-    # fold-back of the taps beyond capacity: the deterministic scatter (no
-    # float atomics), as the reference drains them outside its kernel
-    pad = torch.zeros(B * 4 * Hp * Wp, dtype=torch.float32, device=ev.device)
-    with _deterministic():
-        pad.index_add_(0, pack.fold_idx.reshape(-1),
-                       pack.fold_deltas.reshape(-1))
-    # (the reshape above is a channels-last view where one tile spans the
-    # width, so the sum follows that layout unless made contiguous)
-    channels = (img[..., :Hs, :Ws]
-                + pad.view(B, 4, Hp, Wp)[..., :Hs, :Ws]).contiguous()
+    with step("fold_back"):
+        # reassemble (B, T, P_TILE, 4) -> (B, 4, nty*TH, ntx*TW)
+        Hp, Wp = nty * TH, ntx * TW
+        img = tiles.reshape(B, nty, ntx, TH, TW, 4) \
+            .permute(0, 5, 1, 3, 2, 4).reshape(B, 4, Hp, Wp)
+        # fold-back of the taps beyond capacity: the deterministic scatter
+        # (no float atomics), as the reference drains them outside its
+        # kernel
+        pad = torch.zeros(B * 4 * Hp * Wp, dtype=torch.float32,
+                          device=ev.device)
+        with _deterministic():
+            pad.index_add_(0, pack.fold_idx.reshape(-1),
+                           pack.fold_deltas.reshape(-1))
+        # (the reshape above is a channels-last view where one tile spans
+        # the width, so the sum follows that layout unless made contiguous)
+        channels = (img[..., :Hs, :Ws]
+                    + pad.view(B, 4, Hp, Wp)[..., :Hs, :Ws]).contiguous()
     spilled = (pack.cnt - capacity).clamp(min=0).sum(-1).to(torch.int32)
     return IweAccumOut(channels=channels, spilled=spilled)
 
@@ -200,7 +207,8 @@ def fused_engine_pass(ev: EventWindow, omega: torch.Tensor, cam: Camera,
     acc = iwe_accum(ev, omega, cam, scale, weights=weights, tile=tile,
                     capacity=capacity)
     Hs, Ws = cam.grid(scale)
-    stats = blur_stats(acc.channels, num_taps, sigma, fir=fir)
+    with step("blur_stats"):
+        stats = blur_stats(acc.channels, num_taps, sigma, fir=fir)
     var, grad = stats_to_objective(stats, Hs * Ws)
     return var, grad, acc.spilled
 
@@ -288,10 +296,12 @@ def batched_engine_stats(ev: EventWindow, omega: torch.Tensor, cam: Camera,
     if fir is None:
         fir = gaussian_taps(num_taps, sigma, torch.float32, device=ev.device)
     omega = omega.to(torch.float32).contiguous()
-    bins = bin_taps(ev, omega, weights, cam, scale)
-    stats = megakernel_stats(*bins, omega, fir, H=Hs, W=Ws, rb=rb,
-                             scale=scale, fx=cam.fx, fy=cam.fy, cx=cam.cx,
-                             cy=cam.cy)
+    with step("bin_taps"):
+        bins = bin_taps(ev, omega, weights, cam, scale)
+    with step("megakernel"):
+        stats = megakernel_stats(*bins, omega, fir, H=Hs, W=Ws, rb=rb,
+                                 scale=scale, fx=cam.fx, fy=cam.fy,
+                                 cx=cam.cx, cy=cam.cy)
     return BatchedEngineOut(stats=stats, spilled=_no_spill(ev.device,
                                                           ev.x.shape[0]))
 

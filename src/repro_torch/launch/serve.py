@@ -68,10 +68,11 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import itertools
 import time
 from collections import deque
 from collections.abc import MutableMapping
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -110,6 +111,11 @@ class FakeClock:
     def advance_to(self, t: float) -> float:
         self.advance(max(0.0, float(t) - self._t))
         return self._t
+
+    def ns(self) -> int:
+        """The virtual time in nanoseconds: a traced service on this clock
+        stamps its step spans with it, so its traces are deterministic."""
+        return round(self._t * 1e9)
 
 
 def _tensors(obj) -> List[torch.Tensor]:
@@ -344,6 +350,7 @@ class _InFlight:
     batch_b: int
     t_dispatch: float
     caps: Optional[np.ndarray] = None   # (B, S) budget caps, for telemetry
+    batch_id: int = 0                   # the batch's id in its step spans
 
 
 # ---------------------------------------------------------------------------
@@ -389,6 +396,31 @@ class _ServingMetrics:
                              "requests queued, not yet dispatched")
         self.inflight_batches = g("repro_serving_inflight_batches",
                                   "batches dispatched, not yet harvested")
+        # engine passes, counted once a batch from its harvested iterations
+        self.lockstep_passes = c(
+            "repro_serving_lockstep_passes_total",
+            "engine passes the batches ran: per batch the entry pass plus "
+            "its slowest window's iterations", labels=("stage",))
+        self.window_passes = c(
+            "repro_serving_window_passes_total",
+            "engine passes the windows needed, each on its own (1 + its "
+            "iterations)", labels=("stage",))
+        self.slot_passes = c(
+            "repro_serving_slot_passes_total",
+            "lockstep passes times the batch's slots, fill slots included",
+            labels=("stage",))
+
+    def count_passes(self, iters: Sequence[Tuple[int, ...]],
+                     batch_b: int) -> None:
+        """Count one harvested batch's passes from its real windows'
+        per-stage iterations (fill slots copy the leader or stop at one
+        iteration, so the slowest real window sets the lockstep)."""
+        for si, col in enumerate(zip(*iters)):
+            lockstep = 1 + max(col)
+            self.lockstep_passes.labels(stage=si).inc(lockstep)
+            self.window_passes.labels(stage=si).inc(
+                sum(1 + it for it in col))
+            self.slot_passes.labels(stage=si).inc(lockstep * batch_b)
 
 
 #: `stats` key -> _ServingMetrics attribute ("shed" is derived)
@@ -448,6 +480,13 @@ def _batch_class(b: int, max_batch: int, mesh) -> int:
         cls = max(cls, ndev)
         cls += (-cls) % ndev
     return cls
+
+
+def _batch_attrs(batch: List[WindowRequest], bucket_n: int,
+                 batch_b: int) -> dict:
+    """A `batch` step span's attributes: its real windows, its classes."""
+    return {"windows": [[r.stream_id, r.seq] for r in batch],
+            "bucket_n": bucket_n, "batch_b": batch_b, "n_real": len(batch)}
 
 
 def _workload(cfg, workload, **kw):
@@ -534,6 +573,7 @@ class AsyncBatchedEstimationService:
         self._ready: List[WindowResponse] = []
         self._order = 0
         self._cache: Dict[Tuple[int, int, bool], object] = {}
+        self._batch_ids = itertools.count()
 
     @property
     def stats(self):
@@ -678,13 +718,15 @@ class AsyncBatchedEstimationService:
 
         n_fill = batch_b - len(batch)
         caps = self._allocate_caps(batch, batch_b)
+        batch_id = next(self._batch_ids)
         if getattr(self.executor, "needs_data", True):
             states = [r.omega_hint if r.omega_hint is not None
                       else self._warm.get(r.stream_id,
                                           self.workload.default_state())
                       for r in batch]
-            ev_batch, om_batch, n_fill = self.workload.make_batch(
-                [r.window for r in batch], states, bucket_n, batch_b)
+            with self._tracer.step("make_batch", batch_id):
+                ev_batch, om_batch, n_fill = self.workload.make_batch(
+                    [r.window for r in batch], states, bucket_n, batch_b)
         else:
             ev_batch = om_batch = None    # virtual-time simulation
 
@@ -695,14 +737,19 @@ class AsyncBatchedEstimationService:
             # the caps are per-dispatch data; the workload closes them over
             # so every executor sees the uniform fn(data, state) signature
             fn = self.workload.attach_caps(fn, caps)
+        if self._tracer.enabled:
+            attrs = _batch_attrs(batch, bucket_n, batch_b)
+            fn = self._tracer.batch(fn, batch_id, attrs, _block)
         handle = self.executor.submit(fn, ev_batch, om_batch,
                                       bucket_n, batch_b)
         t_dispatch = self.clock.now()
+        if self._tracer.enabled:
+            attrs["t_dispatch"] = t_dispatch
         for r in batch:
             self._tracer.mark(r.stream_id, r.seq, "dispatch", t=t_dispatch,
                               batch_b=batch_b, compile=compiled)
         self._inflight.append(_InFlight(batch, handle, bucket_n, batch_b,
-                                        t_dispatch, caps))
+                                        t_dispatch, caps, batch_id))
         self._m.batches.inc()
         self._m.event_slots.inc(bucket_n * batch_b)
         self._m.raw_events.inc(sum(self.workload.size_of(r.window)
@@ -716,11 +763,14 @@ class AsyncBatchedEstimationService:
         res = self.executor.wait(fb.handle)
         now = self.clock.now()
         track_gain = any(q.budgeted for q in self.qos_classes.values())
-        slot = self.workload.harvest(res, track_gain)
+        with self._tracer.step("harvest", fb.batch_id):
+            slot = self.workload.harvest(res, track_gain)
         meta = self.workload.decision_meta(res) \
             if self._decisions.enabled else None
+        harvested = []
         for i, r in enumerate(fb.requests):
             out, state, iters, gain = slot(i)
+            harvested.append(iters)
             if state is not None:    # None = data-free run; keep old state
                 self._warm[r.stream_id] = state
             self._busy.discard(r.stream_id)
@@ -738,6 +788,8 @@ class AsyncBatchedEstimationService:
                 fb.bucket_n, fb.batch_b, status="ok",
                 t_submit=r.t_submit, t_done=now, qos=r.qos))
         self._m.windows.inc(len(fb.requests))
+        if self.workload.counts_passes:
+            self._m.count_passes(harvested, fb.batch_b)
 
     def _record_decisions(self, r: WindowRequest, iters: Tuple[int, ...],
                           caps: Optional[np.ndarray], i: int,
@@ -850,6 +902,7 @@ class BatchedEstimationService:
         self._seq: Dict[str, int] = {}
         self._warm: Dict[str, object] = {}      # per-stream carried state
         self._cache: Dict[Tuple[int, int], object] = {}
+        self._batch_ids = itertools.count()
 
     @property
     def stats(self):
@@ -936,13 +989,19 @@ class BatchedEstimationService:
                   else self._warm.get(req.stream_id,
                                       self.workload.default_state())
                   for req in batch]
+        batch_id = next(self._batch_ids)
         # fill slots replicate the leader (finite data, results discarded)
-        data, state_batch, n_fill = self.workload.make_batch(
-            [req.window for req in batch], states, bucket_n, batch_b)
+        with self._tracer.step("make_batch", batch_id):
+            data, state_batch, n_fill = self.workload.make_batch(
+                [req.window for req in batch], states, bucket_n, batch_b)
         pre_compiles = self._m.compiles.value
         fn = self._executable(bucket_n, batch_b)
         compiled = self._m.compiles.value != pre_compiles
         t_dispatch = self.clock.now()
+        if self._tracer.enabled:
+            attrs = _batch_attrs(batch, bucket_n, batch_b)
+            attrs["t_dispatch"] = t_dispatch
+            fn = self._tracer.batch(fn, batch_id, attrs, _block)
         for req in batch:
             self._tracer.mark(req.stream_id, req.seq, "dispatch",
                               t=t_dispatch, batch_b=batch_b,
@@ -951,10 +1010,12 @@ class BatchedEstimationService:
         t_done = self.clock.now()
         self._m.execute.observe(t_done - t_dispatch)
 
-        slot = self.workload.harvest(res, False)
-        out = []
+        with self._tracer.step("harvest", batch_id):
+            slot = self.workload.harvest(res, False)
+        out, harvested = [], []
         for i, req in enumerate(batch):
             out_i, state, iters, _ = slot(i)
+            harvested.append(iters)
             if state is not None:
                 self._warm[req.stream_id] = state
             self._tracer.finish(req.stream_id, req.seq, "harvest", "ok",
@@ -969,6 +1030,8 @@ class BatchedEstimationService:
         self._m.raw_events.inc(sum(self.workload.size_of(req.window)
                                    for req in batch))
         self._m.fill_slots.inc(n_fill)
+        if self.workload.counts_passes:
+            self._m.count_passes(harvested, batch_b)
         return out
 
     def drain(self) -> List[WindowResponse]:
@@ -992,8 +1055,9 @@ class BatchedEstimationService:
 
 
 def _cli_telemetry(args) -> Telemetry:
-    """Telemetry for a CLI run: spans + decisions when a trace sink is
-    requested; the registry is always on."""
+    """Telemetry for a CLI run: spans (request and step spans) and
+    decisions when a trace sink is requested; the registry is always
+    on."""
     want_trace = getattr(args, "trace_out", None) is not None
     return Telemetry(spans=want_trace, decisions=want_trace)
 
@@ -1007,7 +1071,7 @@ def _cli_export(svc, args) -> None:
         print(f"wrote Prometheus metrics to {args.metrics_out}")
     if getattr(args, "trace_out", None):
         n = tel.write_trace(args.trace_out)
-        print(f"wrote {n} trace records (spans + decisions) "
+        print(f"wrote {n} trace records (spans, step spans + decisions) "
               f"to {args.trace_out}")
     if getattr(args, "metrics_out", None) or \
             getattr(args, "trace_out", None):

@@ -57,6 +57,10 @@ class Workload:
     name: str = "workload"
     #: whether budgeted QoS classes are servable (allocate_caps is real)
     supports_budgets: bool = False
+    #: whether a slot's `iters` are per-stage iterations of a lockstep
+    #: residence, each one engine pass after the stage's entry pass (the
+    #: service then counts the passes in its registry)
+    counts_passes: bool = False
     policy = None
 
     @property
@@ -186,6 +190,7 @@ class CmaxWorkload(Workload):
     per data-parallel index; budgeted QoS classes are then refused."""
 
     name = "cmax"
+    counts_passes = True
 
     def __init__(self, cfg, policy=None, mesh=None, scheduler=None,
                  device: DeviceLike = None):

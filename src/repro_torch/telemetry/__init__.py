@@ -8,23 +8,30 @@ The `Telemetry` facade is what the serving layer consumes: it owns one
 optional `Tracer` and `DecisionLog` (Null twins when disabled, so the
 hot path pays only no-op method calls). A service binds its injectable
 clock via `bind_clock`, so FakeClock/virtual-time runs produce
-deterministic traces.
+deterministic traces. `spans=True` also records the batch path's step
+spans (`spans.STEP_SPANS`), on the host clock the device trace uses.
 
     tel = Telemetry(spans=True, decisions=True)
     svc = AsyncBatchedEstimationService(cfg, telemetry=tel, ...)
     ... serve ...
-    tel.write_trace("trace.jsonl")      # spans + decisions, JSONL
+    tel.write_trace("trace.jsonl")      # spans, step spans, decisions
     tel.write_metrics("metrics.prom")   # Prometheus text format
     print(tel.summary())
 """
 from __future__ import annotations
 
+import time
+
 from .registry import (Counter, Gauge, Histogram, MetricsRegistry,
                        LATENCY_BUCKETS_S)
 from .spans import Span, Tracer, NullTracer, SPAN_EVENTS, SPAN_FIELDS
+from .spans import STEP_FIELDS, STEP_SPANS, StepSpan, step  # noqa: F401
 from .decisions import DecisionLog, NullDecisionLog, DECISION_FIELDS
-from .export import write_jsonl, read_jsonl, summary_text, to_dicts
+from .export import (write_jsonl, read_jsonl, summary_text, to_dicts,
+                     step_totals)  # noqa: F401
 
+# the reference package's names; the step spans, which it has not, are
+# imported by name
 __all__ = [
     "Telemetry", "MetricsRegistry", "Counter", "Gauge", "Histogram",
     "LATENCY_BUCKETS_S", "Span", "Tracer", "NullTracer", "SPAN_EVENTS",
@@ -54,15 +61,19 @@ class Telemetry:
 
     def bind_clock(self, clock) -> None:
         """Point the tracer at the service's injectable clock (used only
-        when an event is marked without an explicit `t=`)."""
+        when an event is marked without an explicit `t=`). Step spans
+        stay on the host's `time.time_ns` unless the clock keeps virtual
+        time in nanoseconds of its own (`FakeClock.ns`)."""
         if self.tracer.enabled:
             self.tracer.clock = clock
+            self.tracer.step_ns = getattr(clock, "ns", time.time_ns)
 
     # -- export --------------------------------------------------------------
 
     def trace_records(self):
-        """All spans then all decisions, as serializable dicts."""
-        return (to_dicts(self.tracer.spans)
+        """All request spans, all step spans, then all decisions, as
+        serializable dicts."""
+        return (to_dicts(self.tracer.spans) + to_dicts(self.tracer.steps)
                 + to_dicts(self.decisions.records))
 
     def write_trace(self, path: str) -> int:
@@ -74,4 +85,4 @@ class Telemetry:
 
     def summary(self) -> str:
         return summary_text(self.registry, self.tracer.spans,
-                            self.decisions)
+                            self.decisions, steps=self.tracer.steps)

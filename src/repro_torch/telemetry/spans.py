@@ -21,10 +21,24 @@ The tracer is the *optional* half of the telemetry layer: the default
 service runs a `NullTracer` (every method a no-op, nothing retained), so
 tracing costs nothing unless a caller opts in (`Telemetry(spans=True)`,
 or the `--trace-out` serving flag).
+
+The same tracer records *step spans*: what the host does for one batch,
+from the service's `make_batch` through the worker's stages, lockstep
+passes and kernels to the `harvest` (`STEP_SPANS`). The service runs the
+batch function under the tracer's scope (`Tracer.batch`), on whatever
+thread the executor runs it; the pipeline and the kernel wrappers open
+their spans with `step`, which under no scope returns one shared no-op.
+Step spans are stamped in host nanoseconds on `time.time_ns`, the clock
+the profiler stamps device events on, so a span can be laid against the
+device's work; a service on a `FakeClock` stamps them on its virtual
+time instead (`Telemetry.bind_clock`), so its traces stay deterministic.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import itertools
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
 #: canonical lifecycle event names, in order of occurrence
 SPAN_EVENTS = ("submit", "admit", "dispatch", "harvest", "shed")
@@ -34,6 +48,24 @@ SPAN_EVENTS = ("submit", "admit", "dispatch", "harvest", "shed")
 SPAN_FIELDS = ("type", "stream_id", "seq", "qos", "bucket_n", "batch_b",
                "status", "compile", "iters", "events", "phases",
                "latency_s")
+
+#: the step spans of the batch path, outermost first: on the service's
+#: thread `make_batch` and `harvest`; under the worker's `batch`, one
+#: `stage` per stage holding `sort`, `entry_pass` and one `pass` per
+#: lockstep iteration, each pass holding `propose`, `engine`, `select`
+#: and `stop_sync` (the one read that waits on the device); under
+#: `engine` the kernels' steps (`bin_taps`, `megakernel` on the batched
+#: engine; `pack_tiles`, `tile_accumulate`, `fold_back`, `blur_stats` on
+#: the per-window one); `kernel_load` where a kernel library is first
+#: loaded (built with nvcc or not, its `nvcc` attribute says)
+STEP_SPANS = ("make_batch", "harvest", "batch", "stage", "sort",
+              "entry_pass", "pass", "propose", "engine", "bin_taps",
+              "megakernel", "pack_tiles", "tile_accumulate", "fold_back",
+              "blur_stats", "select", "stop_sync", "kernel_load")
+
+#: canonical keys of a serialized step span
+STEP_FIELDS = ("type", "id", "name", "parent", "batch", "t0_ns", "t1_ns",
+               "attrs")
 
 
 class Span:
@@ -97,11 +129,101 @@ class Span:
                 "phases": self.phases(), "latency_s": self.latency_s}
 
 
+class StepSpan:
+    """One step of the batch path: its name, host nanoseconds at its start
+    and end, the id of the span it ran under (None at the top) and the
+    id of the batch it belongs to."""
+
+    __slots__ = ("id", "name", "parent", "batch", "t0_ns", "t1_ns",
+                 "attrs")
+
+    def __init__(self, id_: int, name: str, parent: Optional[int],
+                 batch: Optional[int], t0_ns: int, attrs: dict):
+        self.id = id_
+        self.name = name
+        self.parent = parent
+        self.batch = batch
+        self.t0_ns = t0_ns
+        self.t1_ns = t0_ns
+        self.attrs = attrs
+
+    @property
+    def seconds(self) -> float:
+        return (self.t1_ns - self.t0_ns) / 1e9
+
+    def to_dict(self) -> dict:
+        return {"type": "step", "id": self.id, "name": self.name,
+                "parent": self.parent, "batch": self.batch,
+                "t0_ns": self.t0_ns, "t1_ns": self.t1_ns,
+                "attrs": dict(self.attrs)}
+
+
+class _OpenStep:
+    """An open step span: `with` ends it and files it with its tracer."""
+
+    __slots__ = ("tracer", "span", "stack")
+
+    def __init__(self, tracer: "Tracer", span: StepSpan, stack: list):
+        self.tracer = tracer
+        self.span = span
+        self.stack = stack
+
+    def __enter__(self) -> StepSpan:
+        return self.span
+
+    def __exit__(self, *exc) -> bool:
+        self.span.t1_ns = self.tracer.step_ns()
+        self.stack.pop()
+        self.tracer.steps.append(self.span)
+        return False
+
+
+class _NoStep:
+    """The step span under no tracer: a shared no-op (`with` gives None)."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_STEP = _NoStep()
+
+
+class _Scope(threading.local):
+    """The tracer whose scope the running thread is in (`Tracer.batch`),
+    the ids of its open step spans and the batch they belong to; None
+    outside a scope (class defaults, so the no-op path raises nothing)."""
+
+    tracer = None
+    stack = None
+    batch = None
+
+
+_scope = _Scope()
+
+
+def step(name: str, **attrs):
+    """A step span of the batch path, to be used as ``with step(name):``,
+    under the tracer whose scope this thread is in; the shared no-op
+    where there is none. `name` is one of `STEP_SPANS`."""
+    tracer = _scope.tracer
+    if tracer is None:
+        return _NO_STEP
+    return tracer._open_step(name, _scope.stack, _scope.batch, attrs)
+
+
 class Tracer:
     """Collects spans keyed by (stream_id, seq) — unique per service,
     since seq numbers are per-stream monotone. The serving loop passes
     explicit timestamps (`t=`) where it already read the clock, so a
-    span never sees a different time than the response it describes."""
+    span never sees a different time than the response it describes.
+
+    Also collects the batch path's step spans (`steps`, in the order they
+    end), stamped by `step_ns`."""
 
     enabled = True
 
@@ -109,6 +231,9 @@ class Tracer:
         self.clock = clock
         self._open: Dict[Tuple[str, int], Span] = {}
         self.spans: List[Span] = []
+        self.step_ns: Callable[[], int] = time.time_ns
+        self.steps: List[StepSpan] = []
+        self._ids = itertools.count()
 
     def _now(self, t: Optional[float]) -> float:
         return self.clock.now() if t is None else t
@@ -148,6 +273,44 @@ class Tracer:
         out, self.spans = self.spans, []
         return out
 
+    # -- step spans ------------------------------------------------------------
+
+    def _open_step(self, name: str, stack: list, batch: Optional[int],
+                   attrs: dict) -> _OpenStep:
+        sp = StepSpan(next(self._ids), name, stack[-1] if stack else None,
+                      batch, self.step_ns(), attrs)
+        stack.append(sp.id)
+        return _OpenStep(self, sp, stack)
+
+    def step(self, name: str, batch: Optional[int], **attrs) -> _OpenStep:
+        """A step span at the top of the calling thread's own steps (the
+        service's `make_batch` and `harvest` of batch `batch`)."""
+        return self._open_step(name, [], batch, attrs)
+
+    def batch(self, fn: Callable, batch: int, attrs: dict,
+              block: Callable) -> Callable:
+        """`fn` run under this tracer's scope as the `batch` span of batch
+        `batch`: the thread that calls the returned function records the
+        batch path's `step` spans under it. The span ends when
+        `block(result)` has waited for the result's device work. `attrs`
+        become the span's attributes; the caller may add to the dict
+        until the trace is exported."""
+
+        def run(*args):
+            saved = (_scope.tracer, _scope.stack, _scope.batch)
+            _scope.tracer, _scope.stack, _scope.batch = self, [], batch
+            try:
+                with self._open_step("batch", _scope.stack, batch, attrs):
+                    return block(fn(*args))
+            finally:
+                _scope.tracer, _scope.stack, _scope.batch = saved
+        return run
+
+    def drain_steps(self) -> List[StepSpan]:
+        """Hand over (and forget) the step spans that have ended."""
+        out, self.steps = self.steps, []
+        return out
+
 
 class NullTracer:
     """Disabled-mode tracer: every method is a no-op, nothing is
@@ -157,6 +320,7 @@ class NullTracer:
     enabled = False
     clock = None
     spans: Tuple[Span, ...] = ()
+    steps: Tuple[StepSpan, ...] = ()
 
     def start(self, *a, **kw) -> None:
         pass
@@ -168,4 +332,13 @@ class NullTracer:
         pass
 
     def drain(self) -> tuple:
+        return ()
+
+    def step(self, *a, **kw) -> _NoStep:
+        return _NO_STEP
+
+    def batch(self, fn: Callable, *a) -> Callable:
+        return fn
+
+    def drain_steps(self) -> tuple:
         return ()

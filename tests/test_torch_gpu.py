@@ -654,6 +654,54 @@ def test_served_drain_matches_its_chain_on_the_card(cuda, engine):
             assert np.array_equal(by[(sid, k)].omega, state), (sid, k)
 
 
+@pytest.mark.parametrize("engine,steps", [
+    ("cuda_batched", ["bin_taps", "megakernel"]),
+    ("cuda", ["pack_tiles", "tile_accumulate", "fold_back", "blur_stats"])])
+def test_step_spans_on_the_card_keep_the_bits(cuda, engine, steps):
+    """The async service on the card with step spans on opens the
+    engine's kernel steps under every `engine` span, closes each batch
+    after its stream has finished, and answers with the bits of the same
+    drain with spans off."""
+    from repro_torch.launch.serve import AsyncBatchedEstimationService
+    from repro_torch.serving import CmaxWorkload
+    from repro_torch.telemetry import Telemetry
+
+    policy = events.pow2_policy(min_bucket=4096, max_bucket=8192)
+    streams = _serve_streams(cuda)
+    answers, tels = [], []
+    for spans in (True, False):
+        tel = Telemetry(spans=spans)
+        svc = AsyncBatchedEstimationService(
+            workload=CmaxWorkload(_short_cfg(engine), policy=policy,
+                                  device=cuda),
+            max_batch=2, max_in_flight=2, telemetry=tel)
+        for sid, (wins, om0) in streams.items():
+            for k, w in enumerate(wins):
+                svc.submit(sid, w, omega_hint=om0 if k == 0 else None)
+        rs = sorted(svc.drain(), key=lambda r: (r.stream_id, r.seq))
+        svc.executor.close()
+        assert all(r.status == "ok" for r in rs) and len(rs) == 6
+        answers.append(rs)
+        tels.append(tel)
+    for a, b in zip(*answers):
+        assert a.iters == b.iters and np.array_equal(a.omega, b.omega)
+    assert tels[1].tracer.steps == ()
+    on = tels[0].tracer.steps
+    kids = {}
+    for sp in on:
+        kids.setdefault(sp.parent, []).append(sp.name)
+    engines = [sp for sp in on if sp.name == "engine"]
+    assert engines and all(kids[sp.id] == steps for sp in engines)
+    snap = tels[0].registry.snapshot()
+    assert sum(snap["repro_serving_lockstep_passes_total"].values()) == \
+        sum(sp.name in ("entry_pass", "pass") for sp in on)
+    # a batch's span ends after its device work, so the worker's spans of
+    # one batch never overlap the next batch's
+    batches = sorted((sp for sp in on if sp.name == "batch"),
+                     key=lambda sp: sp.t0_ns)
+    assert all(a.t1_ns <= b.t0_ns for a, b in zip(batches, batches[1:]))
+
+
 # ---- core/energy.py and core/distributed.py on the card ----
 
 

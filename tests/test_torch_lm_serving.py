@@ -361,7 +361,14 @@ def test_lm_cli_smoke(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "xlstm-1.3b: served 4/4 chunks" in out and "sync FIFO" in out
     assert "on cpu" in out and "greedy continuation ids" in out
-    assert len(read_jsonl(str(trace))) == 4               # one span each
+    recs = read_jsonl(str(trace))
+    assert [r["type"] for r in recs].count("span") == 4   # one span each
+    steps = [r for r in recs if r["type"] == "step"]      # one of each a
+    names = [r["name"] for r in steps]                    # batch, no stage
+    assert len(recs) == 4 + len(steps) and names
+    assert sorted(set(names)) == ["batch", "harvest", "make_batch"]
+    assert names.count("batch") == names.count("harvest") \
+        == names.count("make_batch")
     src = os.path.dirname(os.path.dirname(repro_torch.__file__))
     run = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "lm", "--arch",

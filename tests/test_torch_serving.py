@@ -753,6 +753,207 @@ def test_jsonl_roundtrip_and_summary(tmp_path):
 
 
 # ===========================================================================
+# the batch path's step spans and pass counters (the port's own)
+# ===========================================================================
+
+
+def _children(steps):
+    kids = {}
+    for sp in steps:
+        kids.setdefault(sp.parent, []).append(sp)
+    for v in kids.values():
+        v.sort(key=lambda sp: sp.id)
+    return kids
+
+
+def _traced_drain(engine="cuda_batched", executor=None, n_streams=3,
+                  spans=True, sync=False, fixed=False):
+    """Ragged streams through a service on the host clock; returns the
+    telemetry, the responses in (stream, seq) order and the lockstep
+    passes per stage of every batch the workload harvested."""
+    from repro_torch.core.pipeline import lockstep_stage_passes
+    from repro_torch.launch.serve import MonotonicClock
+    cam = small_camera()
+    lockstep = []
+
+    class Recording(CmaxWorkload):
+        def harvest(self, result, track_gain):
+            lockstep.append(lockstep_stage_passes(result))
+            return super().harvest(result, track_gain)
+
+    wl = Recording(fast_cfg(cam, engine), policy=POLICY, device="cpu")
+    tel = Telemetry(spans=spans)
+    if sync:
+        svc = BatchedEstimationService(workload=wl, max_batch=4,
+                                       clock=MonotonicClock(), telemetry=tel)
+    else:
+        svc = AsyncBatchedEstimationService(
+            workload=wl, max_batch=4, clock=MonotonicClock(),
+            executor=executor or InlineExecutor(), telemetry=tel)
+    for sid, ws in ragged_streams(cam, n_streams=n_streams,
+                                  fixed=fixed).items():
+        for w in ws:
+            svc.submit(sid, w)
+    rs = sorted(svc.drain(), key=lambda r: (r.stream_id, r.seq))
+    if executor is not None:
+        executor.close()
+    return tel, rs, lockstep, len(wl.cfg.stages)
+
+
+ENGINE_STEPS = {"cuda_batched": ["bin_taps", "megakernel"],
+                "cuda": ["pack_tiles", "tile_accumulate", "fold_back",
+                         "blur_stats"],
+                "reference": []}
+
+
+@pytest.mark.parametrize("engine,executor", [
+    ("cuda_batched", "inline"), ("cuda_batched", "threaded"),
+    ("cuda", "inline"), ("reference", "sync")])
+def test_step_spans_follow_the_lockstep(engine, executor):
+    """Every batch holds one `stage` per stage; each stage holds `sort`,
+    `entry_pass` and one `pass` per lockstep iteration, each pass its
+    `propose`, `engine` (with the engine's kernel steps), `select` and
+    `stop_sync`; every child lies inside its parent; the service's
+    `make_batch` and `harvest` carry the batch's id."""
+    tel, rs, lockstep, n_stages = _traced_drain(
+        engine, AsyncDispatchExecutor() if executor == "threaded" else None,
+        sync=executor == "sync")
+    steps = tel.tracer.steps
+    by_id = {sp.id: sp for sp in steps}
+    kids = _children(steps)
+    iters = {(r.stream_id, r.seq): r.iters for r in rs}
+    batches = [sp for sp in kids[None] if sp.name == "batch"]
+    assert len(batches) == len(lockstep) > 1
+    assert sorted(sp.batch for sp in batches) == list(range(len(batches)))
+    for name in ("make_batch", "harvest"):
+        assert sorted(sp.batch for sp in kids[None] if sp.name == name) \
+            == list(range(len(batches)))
+    assert sorted(tuple(w) for b in batches for w in b.attrs["windows"]) \
+        == sorted(iters)
+    passes_by_stage = [0] * n_stages
+    for b in batches:
+        assert b.attrs["n_real"] == len(b.attrs["windows"])
+        assert b.attrs["batch_b"] >= b.attrs["n_real"]
+        assert isinstance(b.attrs["t_dispatch"], float)
+        stages = kids[b.id]
+        assert [(sp.name, sp.attrs["stage"]) for sp in stages] == \
+            [("stage", si) for si in range(n_stages)]
+        for si, st in enumerate(stages):
+            names = [sp.name for sp in kids[st.id]]
+            n_pass = max(iters[tuple(w)][si] for w in b.attrs["windows"])
+            assert names == ["sort", "entry_pass"] + ["pass"] * n_pass
+            passes_by_stage[si] += 1 + n_pass
+            entry = kids[st.id][1]
+            assert [sp.name for sp in kids[entry.id]][-1] == "stop_sync"
+            for p in kids[st.id][2:]:
+                assert [sp.name for sp in kids[p.id]] == \
+                    ["propose", "engine", "select", "stop_sync"]
+                eng = kids[p.id][1]
+                assert [sp.name for sp in kids.get(eng.id, [])] == \
+                    ENGINE_STEPS[engine]
+    assert passes_by_stage == [sum(col) for col in zip(*lockstep)]
+    for sp in steps:
+        assert sp.t0_ns <= sp.t1_ns
+        if sp.parent is not None:
+            parent = by_id[sp.parent]
+            assert parent.batch == sp.batch
+            assert parent.t0_ns <= sp.t0_ns and sp.t1_ns <= parent.t1_ns
+
+
+@pytest.mark.parametrize("sync", [False, True])
+def test_pass_counters_equal_the_harvested_iters_and_pass_spans(sync):
+    """The registry's pass counters, bumped once a batch, equal what the
+    harvested iterations and the `entry_pass` / `pass` spans give: the
+    lockstep passes, each window's own passes and the slots' passes (fill
+    slots included)."""
+    tel, rs, lockstep, n_stages = _traced_drain(sync=sync, fixed=True)
+    snap = tel.registry.snapshot()
+    steps = tel.tracer.steps
+    stage_of = {sp.id: sp.attrs["stage"] for sp in steps
+                if sp.name == "stage"}
+    spans = [0] * n_stages
+    for sp in steps:
+        if sp.name in ("entry_pass", "pass"):
+            spans[stage_of[sp.parent]] += 1
+    batch_b = {sp.batch: sp.attrs["batch_b"] for sp in steps
+               if sp.name == "batch"}
+    assert any(sp.attrs["batch_b"] > sp.attrs["n_real"] for sp in steps
+               if sp.name == "batch")          # some batch carries a fill
+    slot = [0] * n_stages
+    for sp in steps:
+        if sp.name == "stage":
+            n = sum(1 for c in steps if c.parent == sp.id
+                    and c.name in ("entry_pass", "pass"))
+            slot[sp.attrs["stage"]] += n * batch_b[sp.batch]
+    for si in range(n_stages):
+        lbl = f'stage="{si}"'
+        assert snap["repro_serving_lockstep_passes_total"][lbl] == \
+            spans[si] == sum(col[si] for col in lockstep)
+        assert snap["repro_serving_window_passes_total"][lbl] == \
+            sum(1 + r.iters[si] for r in rs)
+        assert snap["repro_serving_slot_passes_total"][lbl] == slot[si]
+    # a workload whose iterations are not residence passes counts none
+    cam = small_camera()
+
+    class Tokens(CmaxWorkload):
+        counts_passes = False
+
+    svc = make_svc(cam, workload=Tokens(fast_cfg(cam), policy=POLICY,
+                                        device="cpu"),
+                   executor=InlineExecutor())
+    svc.submit("a", one_window(cam))
+    assert [r.status for r in svc.drain()] == ["ok"]
+    assert svc.telemetry.registry.snapshot()[
+        "repro_serving_lockstep_passes_total"] == {}
+
+
+@pytest.mark.parametrize("sync", [False, True])
+def test_spans_off_record_nothing_and_give_the_same_bits(sync):
+    """With spans off no step span is recorded and no scope is left on the
+    thread; the answers are bitwise those of a run with spans on."""
+    from repro_torch.telemetry import step
+    on = _traced_drain(spans=True, sync=sync)
+    off = _traced_drain(spans=False, sync=sync)
+    assert off[0].tracer.steps == () and off[0].trace_records() == []
+    assert len(on[0].tracer.steps) > 0
+    with step("pass") as sp:
+        assert sp is None
+    assert [(r.stream_id, r.seq, r.iters) for r in on[1]] == \
+        [(r.stream_id, r.seq, r.iters) for r in off[1]]
+    for a, b in zip(on[1], off[1]):
+        assert np.array_equal(a.omega, b.omega)
+    assert on[2] == off[2]
+    assert on[0].registry.snapshot()["repro_serving_window_passes_total"] \
+        == off[0].registry.snapshot()["repro_serving_window_passes_total"]
+
+
+def test_step_spans_on_a_fake_clock_and_their_export(tmp_path):
+    """A service on a `FakeClock` stamps its step spans with the clock's
+    virtual time; the JSONL trace keeps request spans at exactly
+    `SPAN_FIELDS` beside the step records."""
+    from repro_torch.telemetry import STEP_FIELDS
+    cam = small_camera()
+    clock = FakeClock(3.25)
+    tel = Telemetry(spans=True)
+    svc = make_svc(cam, clock=clock, executor=InlineExecutor(),
+                   telemetry=tel, max_batch=2)
+    svc.submit("a", one_window(cam, seed=0))
+    svc.submit("b", one_window(cam, seed=1))
+    svc.drain()
+    assert {sp.t0_ns for sp in tel.tracer.steps} == {3_250_000_000}
+    path = tmp_path / "trace.jsonl"
+    tel.write_trace(str(path))
+    recs = read_jsonl(str(path))
+    spans = [r for r in recs if r["type"] == "span"]
+    steps = [r for r in recs if r["type"] == "step"]
+    assert len(spans) == 2 and all(set(r) == set(SPAN_FIELDS)
+                                   for r in spans)
+    assert all(tuple(sp.to_dict()) == SPAN_FIELDS for sp in tel.tracer.spans)
+    assert steps and all(set(r) == set(STEP_FIELDS) for r in steps)
+    assert len(recs) == len(spans) + len(steps)
+
+
+# ===========================================================================
 # the slice as a whole: the JAX service and the port's on the same streams
 # ===========================================================================
 
@@ -908,4 +1109,12 @@ def test_cmax_cli_smoke(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "served 4/4 windows" in out and "engine cuda_batched" in out
     assert "rmse vs ground truth" in out and "latency p50=" in out
-    assert len(read_jsonl(str(trace))) == 4 + 4 * 3   # spans + decisions
+    recs = read_jsonl(str(trace))
+    kinds = [r["type"] for r in recs]
+    assert kinds.count("span") == 4 and kinds.count("decision") == 4 * 3
+    steps = [r for r in recs if r["type"] == "step"]
+    n_batches = sum(r["name"] == "batch" for r in steps)
+    assert n_batches > 0 and len(recs) == 4 + 4 * 3 + len(steps)
+    for name in ("make_batch", "harvest"):
+        assert sum(r["name"] == name for r in steps) == n_batches
+    assert sum(r["name"] == "stage" for r in steps) == 3 * n_batches

@@ -101,3 +101,108 @@ def test_schema_constants_and_errors_match_reference():
     null = T.Telemetry()
     assert not null.enabled and null.trace_records() == []
     assert json.dumps(null.registry.snapshot()) == "{}"
+
+
+# ===========================================================================
+# the port's step spans (the reference has none)
+# ===========================================================================
+
+
+def _walk(tracer):
+    """A scripted batch under a tracer's scope: two stages, a failing
+    step inside the second, then a step outside any scope."""
+    from repro_torch.telemetry import step
+
+    def batch_fn(x):
+        for si in range(2):
+            with step("stage", stage=si):
+                with step("sort"):
+                    pass
+                with step("pass"):
+                    with step("engine"):
+                        with step("megakernel"):
+                            pass
+        with pytest.raises(ValueError):
+            with step("select"):
+                raise ValueError("raised inside a step")
+        return x + 1
+
+    attrs = {"windows": [["a", 0]], "n_real": 1}
+    fn = tracer.batch(batch_fn, 7, attrs, lambda out: out)
+    with tracer.step("make_batch", 7):
+        pass
+    assert fn(1) == 2
+    attrs["t_dispatch"] = 1.5             # added after the batch ran
+    return fn
+
+
+def test_step_spans_nest_under_the_batch_scope():
+    from repro_torch.telemetry import STEP_SPANS, step
+    tr = T.Tracer()
+    _walk(tr)
+    by_id = {s.id: s for s in tr.steps}
+    assert len(by_id) == len(tr.steps) == 13
+    assert all(s.name in STEP_SPANS for s in tr.steps)
+    assert all(s.batch == 7 for s in tr.steps)
+    roots = [s for s in tr.steps if s.parent is None]
+    assert sorted(s.name for s in roots) == ["batch", "make_batch"]
+    batch = next(s for s in roots if s.name == "batch")
+    assert batch.attrs == {"windows": [["a", 0]], "n_real": 1,
+                           "t_dispatch": 1.5}
+    kids = lambda sp: [s for s in tr.steps if s.parent == sp.id]
+    stages = [s for s in kids(batch) if s.name == "stage"]
+    assert [s.attrs["stage"] for s in stages] == [0, 1]
+    assert [s.name for s in kids(batch)] == ["stage", "stage", "select"]
+    for st in stages:
+        assert sorted(s.name for s in kids(st)) == ["pass", "sort"]
+    for s in tr.steps:                    # every child inside its parent
+        assert s.t0_ns <= s.t1_ns
+        if s.parent is not None:
+            p = by_id[s.parent]
+            assert p.t0_ns <= s.t0_ns and s.t1_ns <= p.t1_ns
+    # the scope ends with the batch: outside it a step is the shared no-op
+    # and records nothing
+    n = len(tr.steps)
+    with step("pass") as sp:
+        assert sp is None
+    assert step("engine") is step("sort") and len(tr.steps) == n
+    assert [s.id for s in tr.drain_steps()] == [s.id for s in by_id.values()]
+    assert tr.steps == []
+
+
+def test_null_tracer_runs_the_batch_function_itself():
+    null = T.NullTracer()
+    fn = lambda x: x
+    assert null.batch(fn, 0, {}, None) is fn
+    with null.step("make_batch", 0) as sp:
+        assert sp is None
+    assert null.steps == () and null.drain_steps() == ()
+
+
+def test_step_records_export_and_summary(tmp_path):
+    from repro_torch.telemetry import STEP_FIELDS, step_totals
+    tel = T.Telemetry(spans=True, decisions=True)
+    tel.bind_clock(TClock(2.0))
+    tel.tracer.start("a", 0, "standard", 512)
+    tel.tracer.finish("a", 0, "harvest", "ok", iters=(1,))
+    _walk(tel.tracer)
+    assert {s.t0_ns for s in tel.tracer.steps} == {2_000_000_000}
+    recs = tel.trace_records()
+    assert [r["type"] for r in recs] == ["span"] + ["step"] * 13
+    assert tuple(recs[0]) == T.SPAN_FIELDS
+    assert all(tuple(r) == STEP_FIELDS for r in recs[1:])
+    path = tmp_path / "t.jsonl"
+    assert tel.write_trace(str(path)) == 14
+    back = T.read_jsonl(str(path))
+    assert set(back[0]) == set(T.SPAN_FIELDS) and back[1:] == recs[1:]
+    totals = step_totals(back[1:])
+    assert totals == step_totals(tel.tracer.steps)
+    assert totals["stage"]["count"] == 2 and totals["pass"]["count"] == 2
+    batch = totals["batch"]["total_s"]
+    under_batch = ("stage", "sort", "pass", "engine", "megakernel",
+                   "select")
+    assert sum(totals[n]["own_s"] for n in under_batch) \
+        + totals["batch"]["own_s"] == pytest.approx(batch, abs=1e-12)
+    text = tel.summary()
+    assert "step spans: 13 (1 batches, 2 lockstep passes)" in text
+    assert "    step megakernel: count=2 " in text
