@@ -14,11 +14,13 @@ paper's size, and times the kernels. Phases:
                 result bitwise equal to its slot of the B=8 batch:
                   megakernel_stats: variance rtol=1e-4, max-normalized
                     gradient atol=1e-4;
-                  tile_accumulate: at capacity 4096 and at the zero-spill
-                    capacity, f32 and bf16 deltas: tiles bitwise equal to
-                    the plain version (both sum each pixel in slot order);
-                    iwe_accum's `spilled` equal to the count from the
-                    per-tile tap counts, its channels (kernel + fold-back)
+                  tile_accumulate: on `pack_tiles`' runs (each tile's
+                    whole run of taps), f32 and bf16 deltas: tiles bitwise
+                    equal to the plain version (both sum each pixel in
+                    slot order); iwe_accum's `spilled` (the taps beyond
+                    capacity 4096, each stage's share printed) equal to
+                    the count from the per-tile tap counts, its channels
+                    bitwise equal at a capacity above the longest run and
                     rtol=atol=1e-4 of the reference scatter;
                   blur_stats_streaming: on those channel stacks, the sums
                     within 1e-3 of each window's largest, variance
@@ -288,9 +290,12 @@ def tile_counts(T, ev, omega, cam, scale):
     return torch.stack(cols)
 
 
-def zero_spill_capacity(cnt) -> int:
-    """The smallest power of two at or above the largest tile count."""
-    return 1 << max(int(cnt.max()) - 1, 0).bit_length()
+def window_runs(pack, i):
+    """Window i of `pack_tiles`' runs alone: its taps, and its offsets less
+    its first slot."""
+    return (pack.pix[i:i + 1].contiguous(),
+            pack.deltas[i:i + 1].contiguous(),
+            (pack.offsets[i:i + 1] - i * pack.pix.shape[1]).contiguous())
 
 
 def check_window_kernels(T, ops, ref, tile_accumulate, tile_accumulate_plain,
@@ -304,53 +309,57 @@ def check_window_kernels(T, ops, ref, tile_accumulate, tile_accumulate_plain,
         Hs, Ws = st.grid(cam)
         weights = T.sort_events(first, om_b, cam, st).weights
         cnt = tile_counts(T, first, om_b, cam, st.scale)
-        zero_cap = zero_spill_capacity(cnt)
+        n_taps, longest = int(cnt.sum()), int(cnt.max())
         packs = {}
-        for cap in sorted({CAPACITY, zero_cap}):
-            for dtype in (torch.float32, torch.bfloat16):
-                pack = ops.pack_tiles(first, om_b, cam, st.scale, weights,
-                                      tile=TILE, capacity=cap, dtype=dtype)
-                check(torch.equal(pack.cnt, cnt),
-                      "the prologue's tile counts differ from bincount's")
-                out = tile_accumulate(pack.pix, pack.deltas, p_tile=P_TILE)
-                again = tile_accumulate(pack.pix, pack.deltas,
-                                        p_tile=P_TILE)
-                plain = tile_accumulate_plain(pack.pix, pack.deltas,
-                                              p_tile=P_TILE)
-                torch.cuda.synchronize()
-                err = float((out - plain).abs().max())
-                err_tile = max(err_tile, err)
-                same = bool(torch.equal(out, plain))
-                slot_ok = all(torch.equal(tile_accumulate(
-                    pack.pix[i:i + 1].contiguous(),
-                    pack.deltas[i:i + 1].contiguous(), p_tile=P_TILE)[0],
-                    out[i]) for i in range(B_WINDOWS))
-                occupied = int(torch.minimum(
-                    cnt, torch.tensor(cap, device=cnt.device)).sum())
-                print(f"[kernels] tile_accumulate s={st.scale} capacity "
-                      f"{cap} {str(dtype)[6:]} B={B_WINDOWS} tiles "
-                      f"{pack.pix.shape[1]} occupied slots {occupied}: max "
-                      f"abs err {err:.3e}, plain bitwise {same}, rerun "
-                      f"bitwise {bool(torch.equal(out, again))}, B=1 == slot "
-                      f"bitwise {slot_ok}")
-                check(bool(torch.isfinite(out).all()), "non-finite tiles")
-                check(same, "tile_accumulate differs from its plain version")
-                check(bool(torch.equal(out, again)),
-                      "tile_accumulate rerun is not bitwise equal")
-                check(slot_ok, "tile_accumulate B=1 differs from its slot")
-                packs[(cap, dtype)] = (pack, occupied)
+        for dtype in (torch.float32, torch.bfloat16):
+            pack = ops.pack_tiles(first, om_b, cam, st.scale, weights,
+                                  tile=TILE, dtype=dtype)
+            check(torch.equal(pack.cnt, cnt),
+                  "the prologue's tile counts differ from bincount's")
+            runs = (pack.pix, pack.deltas)
+            out = tile_accumulate(*runs, p_tile=P_TILE, offsets=pack.offsets)
+            again = tile_accumulate(*runs, p_tile=P_TILE,
+                                    offsets=pack.offsets)
+            plain = tile_accumulate_plain(*runs, p_tile=P_TILE,
+                                          offsets=pack.offsets)
+            torch.cuda.synchronize()
+            err = float((out - plain).abs().max())
+            err_tile = max(err_tile, err)
+            same = bool(torch.equal(out, plain))
+            slot_ok = True
+            for i in range(B_WINDOWS):
+                pix, deltas, off = window_runs(pack, i)
+                slot_ok &= bool(torch.equal(tile_accumulate(
+                    pix, deltas, p_tile=P_TILE, offsets=off)[0], out[i]))
+            print(f"[kernels] tile_accumulate s={st.scale} runs "
+                  f"{str(dtype)[6:]} B={B_WINDOWS} tiles {cnt.shape[1]} "
+                  f"taps {n_taps} (longest run {longest}, "
+                  f"{-(-longest // 4096)} chunks): max abs err {err:.3e}, "
+                  f"plain bitwise {same}, rerun bitwise "
+                  f"{bool(torch.equal(out, again))}, B=1 == slot bitwise "
+                  f"{slot_ok}")
+            check(bool(torch.isfinite(out).all()), "non-finite tiles")
+            check(same, "tile_accumulate differs from its plain version")
+            check(bool(torch.equal(out, again)),
+                  "tile_accumulate rerun is not bitwise equal")
+            check(slot_ok, "tile_accumulate B=1 differs from its slot")
+            packs[dtype] = pack
 
         acc = ops.iwe_accum(first, om_b, cam, st.scale, weights=weights,
                             tile=TILE, capacity=CAPACITY)
+        wide = ops.iwe_accum(first, om_b, cam, st.scale, weights=weights,
+                             tile=TILE, capacity=longest + 1)
         spilled = (cnt - CAPACITY).clamp(min=0).sum(-1)
-        n_taps = int(cnt.sum())
+        same_cap = bool(torch.equal(acc.channels, wide.channels))
         print(f"[kernels] iwe_accum s={st.scale} capacity {CAPACITY}: "
-              f"spilled {int(acc.spilled.sum())} of {n_taps} in-range taps "
-              f"({acc.spilled.sum().item() / max(n_taps, 1):.3f}); "
-              f"zero-spill capacity {zero_cap} (largest tile "
-              f"{int(cnt.max())})")
+              f"taps beyond it {int(acc.spilled.sum())} of {n_taps} "
+              f"in-range taps ({acc.spilled.sum().item() / max(n_taps, 1):.3f}"
+              f"; read in their runs, once folded back); channels bitwise "
+              f"equal at capacity {longest + 1} {same_cap}")
         check(torch.equal(acc.spilled.long(), spilled),
               "spilled differs from the per-tile counts")
+        check(int(wide.spilled.sum()) == 0, "spilled above the longest run")
+        check(same_cap, "iwe_accum's channels depend on the capacity")
         scatter = ref.iwe_accum_ref(first, om_b, cam, st.scale, weights)
         torch.testing.assert_close(acc.channels, scatter, rtol=1e-4,
                                    atol=1e-4)
@@ -387,7 +396,7 @@ def check_window_kernels(T, ops, ref, tile_accumulate, tile_accumulate_plain,
         check(bool(torch.equal(out, again)),
               "blur_stats_streaming rerun is not bitwise equal")
         check(slot_ok, "blur_stats_streaming B=1 differs from its slot")
-        rows.append(dict(stage=st, weights=weights, zero_cap=zero_cap,
+        rows.append(dict(stage=st, weights=weights, longest=longest,
                          packs=packs, channels=ch, taps=taps, geometry=geom,
                          spilled_share=acc.spilled.sum().item()
                          / max(n_taps, 1)))
@@ -405,64 +414,65 @@ def time_window_kernels(T, ops, tile_accumulate, tile_accumulate_plain,
         st = r["stage"]
         Hs, Ws = st.grid(cam)
         timed = {}
-        for (cap, dtype), (pack, occupied) in r["packs"].items():
+        for dtype, pack in r["packs"].items():
             kern = cuda_ms(lambda: tile_accumulate(
-                pack.pix, pack.deltas, p_tile=P_TILE), reps=20)
-            slots = pack.pix.numel()
-            n_out = pack.pix.shape[0] * pack.pix.shape[1] * P_TILE
+                pack.pix, pack.deltas, p_tile=P_TILE, offsets=pack.offsets),
+                reps=20)
+            # every slot a block reads is a tap in a run
+            taps = int(pack.cnt.sum())
+            n_out = pack.cnt.numel() * P_TILE
             costs = roof.cuda_tile_costs(
-                slots, occupied, n_out,
+                taps, taps, n_out,
                 delta_bytes=16 if dtype == torch.float32 else 8)
-            timed[(cap, dtype)] = (kern, int(costs["hbm_bytes"]),
-                                   int(costs["flops"]), slots, n_out)
-        pack, occupied = r["packs"][(CAPACITY, torch.float32)]
-        kern, nbytes, flops, slots, n_out = timed[(CAPACITY, torch.float32)]
+            timed[dtype] = (kern, int(costs["hbm_bytes"]),
+                            int(costs["flops"]), taps, n_out)
+        pack = r["packs"][torch.float32]
+        runs = dict(p_tile=P_TILE, offsets=pack.offsets)
+        kern, nbytes, flops, taps, n_out = timed[torch.float32]
         plain = cuda_ms(lambda: tile_accumulate_plain(
-            pack.pix, pack.deltas, p_tile=P_TILE), reps=5, warmup=1)
-        plain_out = tile_accumulate_plain(pack.pix, pack.deltas,
-                                          p_tile=P_TILE)
-        # one PyTorch call for the same function: index_add_ of the packed
-        # deltas (float atomics: not deterministic). An empty slot's deltas
-        # are zero, so it adds its zeros to pixel (slot mod P_TILE) of its
-        # own tile, spread out rather than piled onto one address.
+            pack.pix, pack.deltas, **runs), reps=5, warmup=1)
+        plain_out = tile_accumulate_plain(pack.pix, pack.deltas, **runs)
+        # one PyTorch call for the same function: index_add_ of the runs'
+        # taps (float atomics: not deterministic), each aimed at its tile's
+        # pixel
         dev = pack.pix.device
-        slot = torch.arange(pack.pix.shape[2], device=dev) % P_TILE
-        idx = torch.where(pack.pix >= 0, pack.pix.long(), slot) \
-            + torch.arange(pack.pix.shape[0] * pack.pix.shape[1],
-                           device=dev).view(pack.pix.shape[:2] + (1,)) \
-            * P_TILE
-        idx = idx.reshape(-1)
-        flat = pack.deltas.reshape(-1, 4)
+        B, L = pack.pix.shape
+        nt = pack.offsets.shape[1] - 1
+        run = torch.searchsorted(pack.offsets.reshape(-1).long(),
+                                 torch.arange(B * L, device=dev),
+                                 right=True) - 1
+        in_run = (run >= 0) & (run % (nt + 1) < nt)
+        idx = ((run - run // (nt + 1)) * P_TILE
+               + pack.pix.reshape(-1))[in_run]
+        flat = pack.deltas.reshape(-1, 4)[in_run]
         lib_out = torch.zeros((n_out, 4), device=dev).index_add_(0, idx, flat)
         torch.testing.assert_close(lib_out.view_as(plain_out), plain_out,
                                    rtol=1e-4, atol=1e-4)
         lib = cuda_ms(lambda: torch.zeros(
             (n_out, 4), device=dev).index_add_(0, idx, flat), reps=20)
         pro = cuda_ms(lambda: ops.pack_tiles(
-            first, om_b, cam, st.scale, r["weights"], tile=TILE,
-            capacity=CAPACITY), reps=10, hold=False)
+            first, om_b, cam, st.scale, r["weights"], tile=TILE), reps=10,
+            hold=False)
         whole = cuda_ms(lambda: ops.iwe_accum(
             first, om_b, cam, st.scale, weights=r["weights"], tile=TILE,
             capacity=CAPACITY), reps=10, hold=False)
         bound, bound_by = kernel_bound_ms(flops, nbytes)
-        other = {f"ms_cap{cap}_{str(dt)[6:]}": v[0]
-                 for (cap, dt), v in timed.items()}
-        row = dict(scale=st.scale, capacity=CAPACITY, ms=kern,
-                   plain_ms=plain, library_ms=lib, prologue_ms=pro,
-                   iwe_accum_ms=whole, bound_ms=bound, bound_by=bound_by,
-                   bytes=nbytes, flops=flops, zero_spill_capacity=r[
-                       "zero_cap"], spilled_share=r["spilled_share"],
-                   **other)
+        row = dict(scale=st.scale, layout="runs", ms=kern,
+                   ms_bf16=timed[torch.bfloat16][0], plain_ms=plain,
+                   library_ms=lib, prologue_ms=pro, iwe_accum_ms=whole,
+                   bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+                   flops=flops, taps=taps, longest_run=r["longest"],
+                   spilled_share=r["spilled_share"])
         tile_rows.append(row)
-        variants = ", ".join(f"{k[3:]} {v * 1e3:.1f} us"
-                             for k, v in other.items())
-        print(f"[timing] tile_accumulate s={st.scale} B={B_WINDOWS} "
-              f"capacity {CAPACITY}: kernel {kern * 1e3:.1f} us/launch "
-              f"({variants}), prologue {pro * 1e3:.1f} us, whole iwe_accum "
-              f"{whole * 1e3:.1f} us, plain {plain * 1e3:.1f} us, "
-              f"index_add_ {lib * 1e3:.1f} us, bound {bound * 1e3:.2f} us "
-              f"({row['bound_by']}: {nbytes} B, {flops} flop) = "
-              f"{100 * bound / kern:.2f}% of bound reached, on {card}")
+        print(f"[timing] tile_accumulate s={st.scale} B={B_WINDOWS} runs "
+              f"({taps} taps, longest {r['longest']}): kernel "
+              f"{kern * 1e3:.1f} us/launch (bf16 "
+              f"{row['ms_bf16'] * 1e3:.1f} us), prologue {pro * 1e3:.1f} "
+              f"us, whole iwe_accum {whole * 1e3:.1f} us, plain "
+              f"{plain * 1e3:.1f} us, index_add_ {lib * 1e3:.1f} us, bound "
+              f"{bound * 1e3:.2f} us ({row['bound_by']}: {nbytes} B, "
+              f"{flops} flop) = {100 * bound / kern:.2f}% of bound reached, "
+              f"on {card}")
 
         ch, taps, k = r["channels"], r["taps"], st.blur_taps
         one = ch[:1]
@@ -2590,7 +2600,7 @@ def main() -> int:
         ms=tile_full["ms"], plain_ms=tile_full["plain_ms"],
         bound_ms=tile_full["bound_ms"], bound_by=tile_full["bound_by"],
         library_ms=tile_full["library_ms"],
-        at=f"{at}, capacity {CAPACITY}, f32", per_stage=tile_rows), dict(
+        at=f"{at}, runs, f32", per_stage=tile_rows), dict(
         name="blur_stats_streaming", route="cuda",
         source="src/repro_torch/kernels/csrc/blur_stats.cu",
         replaces="src/repro/kernels/blur_stats.py:93",

@@ -98,9 +98,9 @@ def make_engine_pass(cam: Camera, stage: StageConfig,
     fn(ev, weights, omega) -> (variance, grad(..., 3)).
 
     "reference" is the plain datapath and takes any leading batch axes;
-    "cuda" takes one (N,) window or a (B, N) batch, with `capacity` taps per
-    tile in its accumulation kernel; "cuda_batched" runs one window as a
-    batch of one through the kernel."""
+    "cuda" takes one (N,) window or a (B, N) batch, `capacity` being the
+    per-tile tap budget its `spilled` counts against; "cuda_batched" runs
+    one window as a batch of one through the kernel."""
     Hs, Ws = stage.grid(cam)
     fir = _fir_cache(stage, dtype)
 

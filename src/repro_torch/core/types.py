@@ -93,10 +93,10 @@ class StageConfig:
 #:   "reference"    — the plain PyTorch scatter + blur_separable datapath
 #:                    (the correctness oracle)
 #:   "cuda"         — the per-window engine (counterpart of "pallas"): per
-#:                    engine pass, the tile-packing prologue, ONE launch of
-#:                    the tile-accumulation kernel (kernels/iwe_accum.py),
-#:                    the fold-back of the taps beyond `engine_capacity`,
-#:                    and ONE launch of the streaming blur-statistics kernel
+#:                    engine pass, the tile-sorting prologue, ONE launch of
+#:                    the tile-accumulation kernel over each tile's whole
+#:                    run of taps (kernels/iwe_accum.py) and ONE launch of
+#:                    the streaming blur-statistics kernel
 #:                    (kernels/blur_stats.py), for a window or a batch
 #:   "cuda_batched" — the batched engine: per engine pass, the binning
 #:                    prologue plus ONE launch of the hand-written CUDA
@@ -112,11 +112,11 @@ class CmaxConfig:
 
     Unlike the JAX reference, the default engine is "cuda_batched": the
     main path on the card is the kernel. `engine_capacity` is the per-tile
-    tap budget of the "cuda" engine's accumulation kernel (taps beyond it
-    are folded back in, so it changes speed, not the result); the
-    "cuda_batched" kernel reads variable-length per-pixel segments and has
-    no capacity. `engine_rb` is that kernel's row-slab height (rows of
-    output per block).
+    tap budget the "cuda" engine counts its `spilled` taps against: its
+    kernel reads each tile's whole run, so the budget changes neither the
+    result nor the speed; the "cuda_batched" kernel reads variable-length
+    per-pixel segments and has no capacity. `engine_rb` is that kernel's
+    row-slab height (rows of output per block).
     """
 
     camera: Camera = Camera()

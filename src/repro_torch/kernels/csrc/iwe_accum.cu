@@ -4,7 +4,7 @@
 //     out[tile, p, c] = sum over slots e of
 //                       [pix[tile, e] == p] * delta[tile, e, c]
 //
-// of the tile's packed tap records into a (P_TILE, 4) f32 partial image.
+// of the tile's tap records into a (P_TILE, 4) f32 partial image.
 //
 // Replaces src/repro/kernels/iwe_accum.py::tile_accumulate (one Pallas TPU
 // grid step per tile, the contraction as an MXU dot). Plain C interface,
@@ -13,11 +13,19 @@
 // in repro_torch/kernels/iwe_accum.py.
 //
 // Inputs (all on the device, row-major, contiguous):
-//   pix      int          [n_tiles, cap]      local pixel of each slot in
-//                                             [0, p_tile); -1 = empty slot
-//   deltas   float | bf16 [n_tiles, cap, 4]   [IWE, dIWE_x, dIWE_y, dIWE_z]
+//   pix      int          [slots]       local pixel of each slot in
+//                                       [0, p_tile); -1 = empty slot
+//   deltas   float | bf16 [slots, 4]    [IWE, dIWE_x, dIWE_y, dIWE_z]
+//   off      int          [windows, tiles + 1]
 //   out      float        [n_tiles, p_tile, 4]
 // n_tiles is windows x tiles: the wrapper folds the window axis in.
+// Tile t of window b reads the run of slots [off[b][t], off[b][t + 1]):
+// the per-window engine's prologue sorts each window's taps by tile and
+// gives the runs' bounds, with the window's first slot folded in, so a run
+// has any length and nothing is beyond a capacity. A window's runs end
+// where its in-range taps end; the out-of-range taps after them are read
+// by no block. `off` is non-decreasing and within [0, slots]: the kernel
+// does not check it.
 //
 // Design: a stable counting sort of each tile's slots by pixel in shared
 // memory, then one thread per pixel folds its run. A tile's pixels are
@@ -58,7 +66,8 @@
 // only shared-memory writes that could meet are to distinct counters.
 // Work per tile is O(slots x G + p_tile) per chunk (the keys are read
 // by every block of the tile), where a walk in which every thread compares
-// every slot would be O(slots x p_tile).
+// every slot would be O(slots x p_tile). A long run takes more chunks, a
+// short one fewer: the longest run sets the kernel's time.
 //
 // What bounds it on the card: neither bytes nor operations. The function
 // needs one read of each slot's pixel, one of each occupied slot's deltas
@@ -144,7 +153,8 @@ template <typename T, int G>
 __global__ void __launch_bounds__(kThreads, 1)
 tile_accumulate_kernel(const int* __restrict__ pix,
                        const T* __restrict__ deltas,
-                       float* __restrict__ out, int cap, int p_tile) {
+                       const int* __restrict__ off,
+                       float* __restrict__ out, int tiles, int p_tile) {
   const int pg = p_tile / G;              // the block's pixels
   const int rw = ranking_warps(pg);
   extern __shared__ __align__(16) unsigned char smem[];
@@ -161,8 +171,11 @@ tile_accumulate_kernel(const int* __restrict__ pix,
   const unsigned group = blockIdx.x % G;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const unsigned lower = (1u << lane) - 1u;
-  const int* pt = pix + tile * cap;
-  const size_t slot0 = tile * cap;
+  // the tile's run: [off[b][t], off[b][t + 1])
+  const size_t k = tile + tile / tiles;   // (b, t) in [windows, tiles + 1]
+  const size_t slot0 = (size_t)off[k];
+  const int len = off[k + 1] - off[k];
+  const int* pt = pix + slot0;
   const int bits = 32 - __clz(pg);        // a key in [0, pg] (pg: none)
   const int ppt = (pg + kThreads - 1) / kThreads;
 
@@ -174,8 +187,8 @@ tile_accumulate_kernel(const int* __restrict__ pix,
   for (int i = 0; i < kMaxPpt; ++i)
     a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0.f;
 
-  for (int j0 = 0; j0 < cap; j0 += kChunk) {
-    const int n = min(kChunk, cap - j0);
+  for (int j0 = 0; j0 < len; j0 += kChunk) {
+    const int n = min(kChunk, len - j0);
 
     // ---- 1. the chunk's keys, compacted to the block's slots ----
     for (int i = t; i < rw * pg / 2; i += kThreads)
@@ -339,8 +352,8 @@ tile_accumulate_kernel(const int* __restrict__ pix,
 }
 
 template <typename T>
-int launch(const int* pix, const T* deltas, float* out, int n_tiles, int cap,
-           int p_tile, cudaStream_t s) {
+int launch(const int* pix, const T* deltas, const int* off, float* out,
+           int n_tiles, int tiles, int p_tile, cudaStream_t s) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
@@ -348,7 +361,7 @@ int launch(const int* pix, const T* deltas, float* out, int n_tiles, int cap,
                                  device);
   if (err != cudaSuccess) return (int)err;
   const int groups = pixel_groups(n_tiles, p_tile, sms);
-  void (*kernel)(const int*, const T*, float*, int, int) =
+  void (*kernel)(const int*, const T*, const int*, float*, int, int) =
       groups == 4 ? tile_accumulate_kernel<T, 4>
       : groups == 2 ? tile_accumulate_kernel<T, 2>
                     : tile_accumulate_kernel<T, 1>;
@@ -356,8 +369,8 @@ int launch(const int* pix, const T* deltas, float* out, int n_tiles, int cap,
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<n_tiles * groups, kThreads, smem, s>>>(pix, deltas, out, cap,
-                                                  p_tile);
+  kernel<<<n_tiles * groups, kThreads, smem, s>>>(pix, deltas, off, out,
+                                                  tiles, p_tile);
   return (int)cudaGetLastError();
 }
 
@@ -374,19 +387,23 @@ long tile_accumulate_smem_bytes(int p_tile) {
   return (long)smem_bytes(p_tile);
 }
 
-// Launches the kernel on `stream`; `bf16` selects the delta type (0: f32,
-// 1: bf16). Returns the CUDA error code (0 = ok).
-int tile_accumulate_launch(const int* pix, const void* deltas, int bf16,
-                           float* out, int n_tiles, int cap, int p_tile,
-                           void* stream) {
-  if (n_tiles <= 0 || cap <= 0 || p_tile <= 0 || p_tile > kMaxPixels)
+// Launches the kernel on `stream` over `windows` x `tiles` tiles, tile t
+// of window b reading slots [off[b (tiles + 1) + t], off[b (tiles + 1) + t
+// + 1]); `bf16` selects the delta type (0: f32, 1: bf16). Returns the CUDA
+// error code (0 = ok).
+int tile_accumulate_runs_launch(const int* pix, const void* deltas,
+                                const int* off, int bf16, float* out,
+                                int windows, int tiles, int p_tile,
+                                void* stream) {
+  if (windows <= 0 || tiles <= 0 || off == nullptr || p_tile <= 0 ||
+      p_tile > kMaxPixels)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    return launch(pix, static_cast<const __nv_bfloat16*>(deltas), out,
-                  n_tiles, cap, p_tile, s);
-  return launch(pix, static_cast<const float*>(deltas), out, n_tiles, cap,
-                p_tile, s);
+    return launch(pix, static_cast<const __nv_bfloat16*>(deltas), off, out,
+                  windows * tiles, tiles, p_tile, s);
+  return launch(pix, static_cast<const float*>(deltas), off, out,
+                windows * tiles, tiles, p_tile, s);
 }
 
 const char* tile_accumulate_error_string(int code) {

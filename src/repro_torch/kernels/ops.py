@@ -3,11 +3,11 @@
 
 Per-window engine (`"cuda"`, counterpart of `"pallas"`):
 
-`pack_tiles`          : warp + tap expansion + stable tile sort + capacity
-                        packing (the Alg.-3 analogue at tile granularity).
-`iwe_accum`           : `pack_tiles`, then ONE `tile_accumulate` launch,
-                        reassembly and the deterministic fold-back of the
-                        taps beyond capacity.
+`pack_tiles`          : warp + tap expansion + stable tile sort and each
+                        tile's run of taps (the Alg.-3 analogue at tile
+                        granularity).
+`iwe_accum`           : `pack_tiles`, then ONE `tile_accumulate` launch over
+                        the runs and the reassembly of the tiles.
 `blur_stats`          : the streaming blur/statistics kernel on a channel
                         stack.
 `fused_engine_pass`   : `iwe_accum` -> `blur_stats` -> Eq. 12.
@@ -30,9 +30,10 @@ Batched engine (`"cuda_batched"`, counterpart of `"pallas_batched"`):
 
 Unlike the TPU megakernel's fixed per-slab capacity, the CSR segments have
 no capacity: no tap is dropped at any event count, so the batched engine
-equals the `reference` engine at every size. The per-window engine keeps
-the TPU's per-tile capacity, and folds the taps beyond it back in, so it is
-exact at any capacity too.
+equals the `reference` engine at every size. The per-window engine's tile
+kernel reads each tile's whole run of taps, so it is exact at any capacity
+too: the TPU's per-tile capacity is only the budget its `spilled` counts
+the taps beyond.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ import torch
 
 from ..core.contrast import gaussian_taps, stats_to_objective
 from ..core.geometry import warp_events
-from ..core.iwe import TAP_OFFSETS, _deterministic, event_deltas
+from ..core.iwe import TAP_OFFSETS, event_deltas
 from ..core.types import Camera, EventWindow
 from ..telemetry.spans import step
 from .blur_stats import blur_stats_streaming
@@ -56,29 +57,30 @@ class IweAccumOut(NamedTuple):
 
 
 class TilePack(NamedTuple):
-    """The tile-accumulation kernel's inputs for a (B, N) batch, and the
-    taps beyond capacity that are folded back in after it."""
+    """The tile-accumulation kernel's inputs for a (B, N) batch: each
+    window's taps sorted by tile, and each tile's run of them."""
 
-    pix: torch.Tensor          # (B, T, CAP) int32 local pixel, -1 = empty
-    deltas: torch.Tensor       # (B, T, CAP, 4) f32 or bf16
-    cnt: torch.Tensor          # (B, T) int64 in-range taps per tile
-    fold_idx: torch.Tensor     # (B, 4N, 4) int64 index into the
-                               # flat (B, 4, Hp, Wp) pad
-    fold_deltas: torch.Tensor  # (B, 4N, 4) f32, zero except beyond capacity
+    pix: torch.Tensor       # (B, 4N) int32 local pixel, tile-major; -1 past
+                            # the runs (out-of-range taps)
+    deltas: torch.Tensor    # (B, 4N, 4) f32 or bf16, in the same order
+    offsets: torch.Tensor   # (B, T + 1) int32: tile t of window b is the
+                            # run [offsets[b, t], offsets[b, t + 1]) of the
+                            # flattened (B * 4N) taps
+    cnt: torch.Tensor       # (B, T) int64 in-range taps per tile
 
 
 def pack_tiles(ev: EventWindow, omega: torch.Tensor, cam: Camera,
                scale: float, weights: Optional[torch.Tensor] = None,
-               tile: Tuple[int, int] = (8, 128), capacity: int = 1024,
+               tile: Tuple[int, int] = (8, 128),
                dtype=torch.float32) -> TilePack:
     """The `iwe_accum` prologue for a (B, N) batch under hypotheses (B, 3):
     warp, per-tap deltas, tile id and local pixel of each tap, a stable sort
-    by tile, per-tile counts and offsets from the sorted keys (no host
-    sync), and the first `capacity` taps of each tile packed into its slots.
+    by tile, and per-tile counts and run offsets from the sorted keys (no
+    host sync). Out-of-range taps sort to key T, past every run.
 
     A tap is valid when its event is in range, whatever its weight, as the
-    reference counts it: zero-weight taps occupy slots and count in
-    `cnt`."""
+    reference counts it: zero-weight taps are in their tile's run and count
+    in `cnt`."""
     Hs, Ws = cam.grid(scale)
     TH, TW = tile
     nty, ntx = -(-Hs // TH), -(-Ws // TW)
@@ -103,36 +105,10 @@ def pack_tiles(ev: EventWindow, omega: torch.Tensor, cam: Camera,
     bounds = torch.searchsorted(
         tid_s, torch.arange(T + 1, dtype=tid_s.dtype, device=dev)
         .expand(B, T + 1).contiguous())
-    offset = bounds[:, :T]
-    cnt = bounds[:, 1:] - offset                             # (B, T)
-
-    j = torch.arange(capacity, device=dev)
-    in_cap = j < cnt.unsqueeze(-1)                           # (B, T, CAP)
-    src = (offset.unsqueeze(-1) + j).clamp(0, 4 * N - 1) \
-        .reshape(B, T * capacity)
-    pix_tile = torch.where(
-        in_cap, torch.gather(pix_s, 1, src).view(B, T, capacity), -1)
-    dv_tile = torch.where(
-        in_cap.unsqueeze(-1),
-        torch.gather(dv_s, 1, src.unsqueeze(-1).expand(B, T * capacity, 4))
-        .view(B, T, capacity, 4), 0)
-
-    # taps beyond their tile's capacity, in sorted order, each window aimed
-    # at its own slot of the pad
-    Hp, Wp = nty * TH, ntx * TW
-    rank = torch.arange(4 * N, device=dev) \
-        - torch.gather(offset, 1, tid_s.clamp(0, T - 1).long())
-    spill = (tid_s < T) & (rank >= capacity)
-    sy = torch.gather(ty, 1, order).clamp(0, Hp - 1)
-    sx = torch.gather(tx, 1, order).clamp(0, Wp - 1)
-    base = (torch.arange(B, device=dev).view(B, 1, 1) * 4
-            + torch.arange(4, device=dev).view(1, 1, 4)) * (Hp * Wp)
-    return TilePack(
-        pix=pix_tile.to(torch.int32).contiguous(),
-        deltas=dv_tile.to(dtype).contiguous(), cnt=cnt,
-        fold_idx=base + (sy * Wp + sx).unsqueeze(-1),
-        fold_deltas=torch.where(spill.unsqueeze(-1), dv_s, 0)
-        .to(torch.float32))
+    cnt = bounds[:, 1:] - bounds[:, :T]                      # (B, T)
+    offsets = bounds + torch.arange(B, device=dev).unsqueeze(-1) * (4 * N)
+    return TilePack(pix=pix_s.to(torch.int32), deltas=dv_s,
+                    offsets=offsets.to(torch.int32), cnt=cnt)
 
 
 def iwe_accum(ev: EventWindow, omega: torch.Tensor, cam: Camera,
@@ -142,10 +118,11 @@ def iwe_accum(ev: EventWindow, omega: torch.Tensor, cam: Camera,
     """Warp + bilinear vote + tile-partitioned accumulation of one (N,)
     window or a (B, N) batch under hypotheses (3,) or (B, 3).
 
-    `capacity` is the per-tile tap budget of the kernel; the taps beyond it
-    (in stable tile order) are scatter-added back in afterwards, so the
-    channels are exact at any capacity and `spilled` counts them. `dtype`
-    is the deltas' type (f32 or bf16); accumulation is always f32."""
+    The kernel reads each tile's whole run of taps, so the channels are
+    exact, and the same bits, at any `capacity`: it is only the per-tile
+    tap budget that `spilled` counts the taps beyond, as the reference
+    counts them. `dtype` is the deltas' type (f32 or bf16); accumulation
+    is always f32."""
     if ev.x.dim() == 1:
         out = iwe_accum(ev.map(lambda a: a.unsqueeze(0)), omega.unsqueeze(0),
                         cam, scale,
@@ -157,28 +134,16 @@ def iwe_accum(ev: EventWindow, omega: torch.Tensor, cam: Camera,
     nty, ntx = -(-Hs // TH), -(-Ws // TW)
     B = ev.x.shape[0]
     with step("pack_tiles"):
-        pack = pack_tiles(ev, omega, cam, scale, weights, tile, capacity,
-                          dtype)
+        pack = pack_tiles(ev, omega, cam, scale, weights, tile, dtype)
     with step("tile_accumulate"):
-        tiles = tile_accumulate(pack.pix, pack.deltas, p_tile=TH * TW)
-
-    with step("fold_back"):
-        # reassemble (B, T, P_TILE, 4) -> (B, 4, nty*TH, ntx*TW)
-        Hp, Wp = nty * TH, ntx * TW
-        img = tiles.reshape(B, nty, ntx, TH, TW, 4) \
-            .permute(0, 5, 1, 3, 2, 4).reshape(B, 4, Hp, Wp)
-        # fold-back of the taps beyond capacity: the deterministic scatter
-        # (no float atomics), as the reference drains them outside its
-        # kernel
-        pad = torch.zeros(B * 4 * Hp * Wp, dtype=torch.float32,
-                          device=ev.device)
-        with _deterministic():
-            pad.index_add_(0, pack.fold_idx.reshape(-1),
-                           pack.fold_deltas.reshape(-1))
-        # (the reshape above is a channels-last view where one tile spans
-        # the width, so the sum follows that layout unless made contiguous)
-        channels = (img[..., :Hs, :Ws]
-                    + pad.view(B, 4, Hp, Wp)[..., :Hs, :Ws]).contiguous()
+        tiles = tile_accumulate(pack.pix, pack.deltas, p_tile=TH * TW,
+                                offsets=pack.offsets)
+        # reassemble (B, T, P_TILE, 4) -> (B, 4, nty*TH, ntx*TW), cropped
+        # (contiguous: where one tile spans the width, the reshape is a
+        # channels-last view)
+        channels = tiles.reshape(B, nty, ntx, TH, TW, 4) \
+            .permute(0, 5, 1, 3, 2, 4).reshape(B, 4, nty * TH, ntx * TW)[
+                ..., :Hs, :Ws].contiguous()
     spilled = (pack.cnt - capacity).clamp(min=0).sum(-1).to(torch.int32)
     return IweAccumOut(channels=channels, spilled=spilled)
 

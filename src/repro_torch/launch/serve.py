@@ -1241,9 +1241,9 @@ def main(argv=None):
                          "engine-pass kernel call per batch engine pass; "
                          "the default)")
     cm.add_argument("--engine-capacity", type=int, default=4096,
-                    help="per-tile tap budget of the cuda engine's "
-                         "accumulation kernel (taps beyond it are folded "
-                         "back in: speed, not the result)")
+                    help="per-tile tap budget the cuda engine counts "
+                         "spilled taps against (its kernel reads every "
+                         "tap: neither the result nor the speed)")
     cm.add_argument("--sync", action="store_true",
                     help="use the synchronous FIFO-drain baseline")
     cm.add_argument("--budget-uj", type=float, default=None,

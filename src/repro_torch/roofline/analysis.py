@@ -426,7 +426,8 @@ def cuda_tile_costs(slots: int, occupied: int, n_out: int,
     """`tile_accumulate` (csrc/iwe_accum.cu): every slot's pixel id (4
     bytes), the occupied slots' deltas (`delta_bytes` each: 16 in f32, 8 in
     bf16) and the (n_out, 4) f32 tile partials; 4 adds per occupied
-    slot."""
+    slot. On the per-window engine's runs the slots read are the taps in
+    the runs, all occupied."""
     return dict(flops=float(occupied * 4),
                 hbm_bytes=float(slots * 4 + occupied * delta_bytes
                                 + n_out * 16))

@@ -55,13 +55,13 @@ SPAN_FIELDS = ("type", "stream_id", "seq", "qos", "bucket_n", "batch_b",
 #: lockstep iteration, each pass holding `propose`, `engine`, `select`
 #: and `stop_sync` (the one read that waits on the device); under
 #: `engine` the kernels' steps (`bin_taps`, `megakernel` on the batched
-#: engine; `pack_tiles`, `tile_accumulate`, `fold_back`, `blur_stats` on
-#: the per-window one); `kernel_load` where a kernel library is first
+#: engine; `pack_tiles`, `tile_accumulate`, `blur_stats` on the
+#: per-window one); `kernel_load` where a kernel library is first
 #: loaded (built with nvcc or not, its `nvcc` attribute says)
 STEP_SPANS = ("make_batch", "harvest", "batch", "stage", "sort",
               "entry_pass", "pass", "propose", "engine", "bin_taps",
-              "megakernel", "pack_tiles", "tile_accumulate", "fold_back",
-              "blur_stats", "select", "stop_sync", "kernel_load")
+              "megakernel", "pack_tiles", "tile_accumulate", "blur_stats",
+              "select", "stop_sync", "kernel_load")
 
 #: canonical keys of a serialized step span
 STEP_FIELDS = ("type", "id", "name", "parent", "batch", "t0_ns", "t1_ns",

@@ -165,40 +165,45 @@ def test_pipeline_on_the_card_tracks_and_is_slot_independent(windows):
 # ----------------------------------------------------------------------
 
 
-def _zero_spill_capacity(cnt):
-    """The smallest power of two at or above the largest tile count."""
-    return 1 << max(int(cnt.max()) - 1, 0).bit_length()
+def _window_runs(pix, deltas, offsets, i):
+    """Window i of a run layout alone: its slots, and its offsets less its
+    first slot."""
+    return (pix[i:i + 1].contiguous(), deltas[i:i + 1].contiguous(),
+            (offsets[i:i + 1] - i * pix.shape[1]).contiguous())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("scale", [s for s, _, _ in STAGES])
 def test_tile_accumulate_matches_plain_and_is_bitwise_stable(windows, scale,
                                                              dtype):
+    """On `pack_tiles`' runs (every tap of a tile in one launch, nothing
+    beyond a capacity): bitwise the plain version, a rerun, and each window
+    alone."""
     wins, om, _ = windows
     w = torch.ones_like(wins.x)
-    cnt = ops.pack_tiles(wins, om, CAM, scale, w, capacity=1).cnt
-    for capacity in (4096, _zero_spill_capacity(cnt)):
-        pack = ops.pack_tiles(wins, om, CAM, scale, w, capacity=capacity,
-                              dtype=dtype)
-        before = tile_accumulate.launches
-        out = tile_accumulate(pack.pix, pack.deltas, p_tile=1024)
-        again = tile_accumulate(pack.pix, pack.deltas, p_tile=1024)
-        torch.cuda.synchronize()
-        assert tile_accumulate.launches == before + 2
-        assert torch.equal(out, again)
-        plain = tile_accumulate_plain(pack.pix, pack.deltas, p_tile=1024)
-        assert torch.equal(out, plain)
-        for i in range(out.shape[0]):
-            one = tile_accumulate(pack.pix[i:i + 1].contiguous(),
-                                  pack.deltas[i:i + 1].contiguous(),
-                                  p_tile=1024)
-            assert torch.equal(one[0], out[i])
-        # CPU tensors run the plain version and launch nothing
-        n = tile_accumulate.launches
-        cpu = tile_accumulate(pack.pix[:1].cpu(), pack.deltas[:1].cpu(),
-                              p_tile=1024)
-        assert tile_accumulate.launches == n
-        torch.testing.assert_close(cpu, out[:1].cpu(), rtol=1e-4, atol=1e-4)
+    pack = ops.pack_tiles(wins, om, CAM, scale, w, dtype=dtype)
+    runs = (pack.pix, pack.deltas)
+    before = tile_accumulate.launches
+    out = tile_accumulate(*runs, p_tile=1024, offsets=pack.offsets)
+    again = tile_accumulate(*runs, p_tile=1024, offsets=pack.offsets)
+    torch.cuda.synchronize()
+    assert tile_accumulate.launches == before + 2
+    assert torch.equal(out, again)
+    plain = tile_accumulate_plain(*runs, p_tile=1024, offsets=pack.offsets)
+    assert torch.equal(out, plain)
+    for i in range(out.shape[0]):
+        pix, deltas, off = _window_runs(pack.pix, pack.deltas, pack.offsets,
+                                        i)
+        one = tile_accumulate(pix, deltas, p_tile=1024, offsets=off)
+        assert torch.equal(one[0], out[i])
+    # CPU tensors run the plain version and launch nothing
+    n = tile_accumulate.launches
+    cpu = tile_accumulate(pix.cpu(), deltas.cpu(), p_tile=1024,
+                          offsets=off.cpu())
+    assert tile_accumulate.launches == n
+    torch.testing.assert_close(cpu, out[-1:].cpu(), rtol=1e-4, atol=1e-4)
+    assert int(pack.cnt.sum()) == int(pack.offsets[:, -1].sub(
+        pack.offsets[:, 0]).sum())
 
 
 @pytest.mark.parametrize("scale,k,sigma", STAGES)
@@ -283,11 +288,24 @@ def test_cuda_engine_on_the_card(cuda, windows):
 # ----------------------------------------------------------------------
 
 
+def _runs(lens, p_tile, rng):
+    """(pix, offsets) of runs of the given (B, T) lengths. Every slot holds
+    a pixel, those past each window's runs too: a block that read past its
+    run would add them."""
+    lens = np.asarray(lens)
+    B, T = lens.shape
+    L = int(lens.sum(1).max()) + 333
+    off = np.zeros((B, T + 1), np.int64)
+    off[:, 1:] = np.cumsum(lens, 1)
+    return rng.integers(0, p_tile, (B, L)), off + np.arange(B)[:, None] * L
+
+
 def _tile_case(name, dtype, device):
-    """(pix, deltas, p_tile) of one hard case for tile_accumulate: two
-    windows of three tiles, drawn from a seed."""
+    """(pix, deltas, p_tile, offsets) of one hard case for tile_accumulate:
+    two windows of runs, drawn from a seed. A case drawn as three packed
+    tiles of CAP slots a window is those slots as runs of CAP."""
     rng = np.random.default_rng(TILE_CASES.index(name))
-    p_tile, cap = 1024, 4096
+    p_tile, cap, off = 1024, 4096, None
     if name == "one_pixel":            # every slot of a tile on one pixel
         pix = np.full((2, 3, cap), 517)
         pix[1] = 3
@@ -313,16 +331,39 @@ def _tile_case(name, dtype, device):
     elif name in ("p_tile_2048", "p_tile_4096"):
         p_tile = int(name[-4:])
         pix = rng.integers(-1, p_tile, (2, 3, cap))
+    elif name == "runs_long":          # one run of 8 chunks, one of 9
+        pix, off = _runs([[30000 + 123, 17, 0], [5, 32769, 4096]], p_tile,
+                         rng)
+        pix[0, 10000:10100] = 7        # a pixel run across a chunk's end
+    elif name == "runs_empty_tiles":   # empty runs first, between, last;
+        pix, off = _runs([[0, 100, 0, 0, 5000, 0], [0] * 6], p_tile, rng)
+    elif name == "runs_mid_chunk":     # runs ending inside a chunk
+        pix, off = _runs([[4095, 4097, 8191], [1, 12288 + 7, 2048]], p_tile,
+                         rng)
+    elif name == "runs_pack_tiles_40k":   # two 40,000-event windows, s=1/4
+        spec = dataclasses.replace(events.POSTER, n_windows=2,
+                                   events_per_window=40000, jerk_prob=0.0)
+        wins, _, om = events.make_sequence(spec, device=device)
+        pack = ops.pack_tiles(wins, om, CAM, 0.25, torch.ones_like(wins.x),
+                              dtype=dtype)
+        assert int(pack.cnt.max()) > 4 * 4096   # runs of several chunks
+        return pack.pix, pack.deltas, p_tile, pack.offsets
     else:
         raise ValueError(name)
     deltas = rng.normal(size=pix.shape + (4,)).astype(np.float32)
+    if off is None:                    # packed: tile t of window b at
+        B, T, cap = pix.shape          # (b T + t) CAP
+        off = (np.arange(B)[:, None] * T + np.arange(T + 1)) * cap
+        pix, deltas = pix.reshape(B, T * cap), deltas.reshape(B, T * cap, 4)
     return (torch.tensor(pix, dtype=torch.int32, device=device),
             torch.tensor(deltas, device=device).to(dtype).contiguous(),
-            p_tile)
+            p_tile, torch.tensor(off, dtype=torch.int32, device=device))
 
 
 TILE_CASES = ["one_pixel", "ragged_capacity", "empty_slots", "empty_tile",
-              "shuffled", "zero_spill", "p_tile_2048", "p_tile_4096"]
+              "shuffled", "zero_spill", "p_tile_2048", "p_tile_4096",
+              "runs_long", "runs_empty_tiles", "runs_mid_chunk",
+              "runs_pack_tiles_40k"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -331,19 +372,23 @@ def test_tile_accumulate_hard_cases_bitwise(cuda, case, dtype):
     """The sorted tile kernel is bit for bit the plain version (each pixel
     sums its slots in slot order) on the inputs a sort gets wrong first,
     on a rerun, and for each window alone."""
-    pix, deltas, p_tile = _tile_case(case, dtype, cuda)
-    out = tile_accumulate(pix, deltas, p_tile=p_tile)
-    again = tile_accumulate(pix, deltas, p_tile=p_tile)
-    plain = tile_accumulate_plain(pix, deltas, p_tile=p_tile)
+    pix, deltas, p_tile, off = _tile_case(case, dtype, cuda)
+    out = tile_accumulate(pix, deltas, p_tile=p_tile, offsets=off)
+    again = tile_accumulate(pix, deltas, p_tile=p_tile, offsets=off)
+    plain = tile_accumulate_plain(pix, deltas, p_tile=p_tile, offsets=off)
     torch.cuda.synchronize()
     assert torch.equal(out, plain)
     assert torch.equal(out, again)
     for i in range(2):
-        one = tile_accumulate(pix[i:i + 1].contiguous(),
-                              deltas[i:i + 1].contiguous(), p_tile=p_tile)
+        p, d, o = _window_runs(pix, deltas, off, i)
+        one = tile_accumulate(p, d, p_tile=p_tile, offsets=o)
         assert torch.equal(one[0], out[i])
     if case == "empty_tile":
         assert float(out[0, 1].abs().max()) == 0.0
+    if case == "runs_empty_tiles":
+        assert float(out[0, [0, 2, 3, 5]].abs().max()) == 0.0
+        assert float(out[1].abs().max()) == 0.0
+        assert float(out[0, 4].abs().max()) > 0.0
 
 
 def _one_pixel_batch(n, device):
@@ -656,7 +701,7 @@ def test_served_drain_matches_its_chain_on_the_card(cuda, engine):
 
 @pytest.mark.parametrize("engine,steps", [
     ("cuda_batched", ["bin_taps", "megakernel"]),
-    ("cuda", ["pack_tiles", "tile_accumulate", "fold_back", "blur_stats"])])
+    ("cuda", ["pack_tiles", "tile_accumulate", "blur_stats"])])
 def test_step_spans_on_the_card_keep_the_bits(cuda, engine, steps):
     """The async service on the card with step spans on opens the
     engine's kernel steps under every `engine` span, closes each batch

@@ -10,6 +10,7 @@ statistics rtol=atol=1e-3, the engine pass at variance rtol=1e-4 and
 gradient rtol=1e-3, atol=1e-6; `spilled` exactly equal.
 """
 import dataclasses
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -54,29 +55,113 @@ def _close(a, b, tol):
 
 
 # ----------------------------------------------------------------------
-# tile_accumulate: identical packed inputs through both kernels
+# tile_accumulate: identical inputs through both kernels
 # ----------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_tile_accumulate_plain_matches_reference(dtype):
+def _as_runs(pix, deltas, cap):
+    """The packed (B, T, CAP) layout as runs: tile t of window b is the run
+    [(b T + t) CAP, (b T + t + 1) CAP) of the flattened slots."""
+    B, T = pix.shape[:2]
+    offsets = (torch.arange(B).view(B, 1) * T + torch.arange(T + 1)) * cap
+    return (pix.reshape(B, T * cap), deltas.reshape(B, T * cap, 4),
+            offsets.to(torch.int32))
+
+
+def _ragged_runs(pix, deltas, rng):
+    """Runs of random lengths (empty ones included) cut from the packed
+    tiles' slots, each window's runs followed by slots that are in none,
+    and the packed (B, T, CAP) tiles that hold each run at the front of its
+    tile: (runs, packed)."""
+    B, T, cap = pix.shape
+    lens = rng.integers(0, cap + 1, size=(B, T))
+    lens[0, 1] = 0
+    lens[1, -1] = 0
+    L = T * cap + 37
+    flat_pix = torch.full((B, L), 5, dtype=torch.int32)   # in no run
+    flat_d = torch.ones((B, L, 4), dtype=deltas.dtype)
+    offsets = torch.zeros((B, T + 1), dtype=torch.int32)
+    packed_pix = torch.full_like(pix, -1)
+    packed_d = torch.zeros_like(deltas)
+    for b in range(B):
+        at = 0
+        for t in range(T):
+            n = int(lens[b, t])
+            offsets[b, t] = b * L + at
+            flat_pix[b, at:at + n] = pix[b, t, :n]
+            flat_d[b, at:at + n] = deltas[b, t, :n]
+            packed_pix[b, t, :n] = pix[b, t, :n]
+            packed_d[b, t, :n] = deltas[b, t, :n]
+            at += n
+        offsets[b, T] = b * L + at
+    return (flat_pix, flat_d, offsets), (packed_pix, packed_d)
+
+
+def _packed_tiles(dtype, rng, n_tiles=3, cap=384, p_tile=1024):
     """Two windows of packed tiles, slots in any order with empty slots
-    anywhere; bf16 deltas are the same bf16 values on both sides and
-    accumulate in f32."""
-    n_tiles, cap, p_tile = 3, 384, 1024
-    rng = np.random.default_rng(11)
+    anywhere: (pix, deltas) as numpy and as torch."""
     pix = rng.integers(-1, p_tile, size=(2, n_tiles, cap)).astype(np.int32)
     pix[:, :, ::7] = -1
     deltas = rng.normal(size=(2, n_tiles, cap, 4)).astype(np.float32)
-    out = tile_accumulate_plain(
-        torch.tensor(pix), torch.tensor(deltas).to(getattr(torch, dtype)),
-        p_tile=p_tile)
+    return pix, deltas, torch.tensor(pix), \
+        torch.tensor(deltas).to(getattr(torch, dtype))
+
+
+def _hold_to_reference(out, pix, deltas, dtype):
+    n_tiles, cap = pix.shape[1:]
+    p_tile = out.shape[2]
     assert out.shape == (2, n_tiles, p_tile, 4) and out.dtype == torch.float32
     for b in range(2):
         expect = r_tile_accumulate(
             jnp.asarray(pix[b]), jnp.asarray(deltas[b]).astype(dtype),
             n_tiles=n_tiles, cap=cap, p_tile=p_tile)
         _close(out[b].numpy(), expect, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tile_accumulate_plain_matches_reference(dtype):
+    """The reference's packed tiles as runs, tile t of window b at offsets
+    (b T + t) CAP; bf16 deltas are the same bf16 values on both sides and
+    accumulate in f32."""
+    pix, deltas, tp, td = _packed_tiles(dtype, np.random.default_rng(11))
+    out = tile_accumulate_plain(*_as_runs(tp, td, pix.shape[2]), p_tile=1024)
+    _hold_to_reference(out, pix, deltas, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tile_accumulate_plain_ragged_runs(dtype):
+    """Runs of random lengths, empty ones included, with slots in no run
+    between the windows: the bits of the same taps at the front of packed
+    tiles (as runs of CAP), and the reference's sums of those tiles."""
+    rng = np.random.default_rng(11)
+    _, _, tp, td = _packed_tiles(dtype, rng)
+    (rp, rd, off), (pp, pd) = _ragged_runs(tp, td, rng)
+    out = tile_accumulate_plain(rp, rd, offsets=off, p_tile=1024)
+    assert torch.equal(
+        out, tile_accumulate_plain(*_as_runs(pp, pd, pp.shape[2]),
+                                   p_tile=1024))
+    _hold_to_reference(out, pp.numpy(), pd.float().numpy(), dtype)
+
+
+@pytest.mark.parametrize("fault", ["decreasing", "past_the_end",
+                                   "negative"])
+def test_tile_accumulate_plain_rejects_bad_offsets(fault):
+    """The runs' offsets, flattened, are non-decreasing and within
+    [0, B L]; the plain version (the CPU path) refuses others."""
+    pix, deltas, off = _as_runs(torch.zeros((2, 3, 8), dtype=torch.int32),
+                                torch.ones((2, 3, 8, 4)), 8)
+    bad = off.clone()
+    if fault == "decreasing":
+        bad[0, 2] = bad[0, 1] - 1
+    elif fault == "past_the_end":
+        bad[1, 3] = pix.numel() + 1
+    else:
+        bad[0, 0] = -1
+    assert torch.equal(tile_accumulate(pix, deltas, offsets=off, p_tile=64),
+                       tile_accumulate_plain(pix, deltas, offsets=off,
+                                             p_tile=64))
+    with pytest.raises(ValueError, match="non-decreasing"):
+        tile_accumulate(pix, deltas, offsets=bad, p_tile=64)
 
 
 # ----------------------------------------------------------------------
@@ -185,6 +270,73 @@ def test_iwe_accum_batch_equals_windows_bitwise():
         assert torch.equal(one.channels, out.channels[i])
 
 
+@pytest.mark.parametrize("capacity", [8, 64, 1024, "above"])
+def test_iwe_accum_capacity_moves_only_spilled(capacity):
+    """The kernel reads each tile's whole run: the channels have the same
+    bits at any capacity, and the capacity moves only `spilled`, which
+    still equals the reference's count."""
+    jcam = small_camera()
+    ev = random_window(1024, cam=jcam, seed=3)
+    om = np.array([0.6, -0.3, 0.9], np.float32)
+    win, cam = _win(ev), _cam(jcam)
+    cnt = ops.pack_tiles(win.map(lambda a: a[None]), torch.tensor(om)[None],
+                         cam, 0.5).cnt
+    if capacity == "above":
+        capacity = int(cnt.max()) + 1
+    base = ops.iwe_accum(win, torch.tensor(om), cam, 0.5,
+                         capacity=int(cnt.max()) + 1)
+    out = ops.iwe_accum(win, torch.tensor(om), cam, 0.5, capacity=capacity)
+    expect = r_iwe_accum(ev, jnp.asarray(om), jcam, 0.5, capacity=capacity)
+    assert torch.equal(out.channels, base.channels)
+    assert int(out.spilled) == int(expect.spilled) \
+        == int((cnt - capacity).clamp(min=0).sum())
+    assert (int(out.spilled) > 0) == (capacity <= int(cnt.max()))
+
+
+@pytest.mark.parametrize("fn", ["iwe_accum", "fused_engine_pass"])
+def test_cuda_engine_scatters_only_in_the_plain_kernel(fn, monkeypatch):
+    """No fold-back: at a capacity that spills, the per-window engine
+    enters neither deterministic algorithms nor `index_add_` outside the
+    tile kernel's plain version (the one that runs on the CPU)."""
+    tile_mod = importlib.import_module("repro_torch.kernels.iwe_accum")
+    inside = []
+    plain = tile_mod.tile_accumulate_plain
+
+    def in_plain(*a, **k):
+        inside.append(1)
+        try:
+            return plain(*a, **k)
+        finally:
+            inside.pop()
+
+    def only_in_plain(f, name):
+        def guarded(*a, **k):
+            if not inside:
+                raise AssertionError(f"{name} outside the plain kernel")
+            return f(*a, **k)
+        return guarded
+
+    entered = []
+    monkeypatch.setattr(tile_mod, "tile_accumulate_plain",
+                        lambda *a, **k: entered.append(1) or in_plain(*a, **k))
+    for name in ("use_deterministic_algorithms", "index_add"):
+        monkeypatch.setattr(torch, name, only_in_plain(getattr(torch, name),
+                                                       name))
+    for name in ("index_add_", "index_add"):
+        monkeypatch.setattr(torch.Tensor, name,
+                            only_in_plain(getattr(torch.Tensor, name), name))
+    assert not hasattr(ops, "_deterministic")
+    jcam = small_camera()
+    wins = [_win(random_window(600, cam=jcam, seed=s)) for s in (20, 21)]
+    om = torch.tensor([[0.6, -0.3, 0.9], [0.1, 0.2, -0.4]])
+    if fn == "iwe_accum":
+        out = ops.iwe_accum(_stack(wins), om, _cam(jcam), 0.25, capacity=8)
+    else:
+        out = ops.fused_engine_pass(_stack(wins), om, _cam(jcam), 0.25, 3,
+                                    0.5, capacity=8)
+    assert bool((out[-1] > 0).all()) and len(entered) == 1
+
+
 # ----------------------------------------------------------------------
 # the fused engine pass, stage by stage
 # ----------------------------------------------------------------------
@@ -225,10 +377,11 @@ def test_cpu_wrappers_run_the_plain_versions_and_count_nothing():
     deltas = torch.tensor(rng.normal(size=(2, 3, 64, 4)), dtype=torch.float32)
     ch = torch.tensor(rng.normal(size=(2, 4, 20, 30)), dtype=torch.float32)
     taps = T.gaussian_taps(5, 0.75)
+    runs = _as_runs(pix, deltas, 64)
     n_tile = tile_accumulate.launches
     n_blur = blur_stats_streaming.launches
-    assert torch.equal(tile_accumulate(pix, deltas, p_tile=1024),
-                       tile_accumulate_plain(pix, deltas, p_tile=1024))
+    assert torch.equal(tile_accumulate(*runs, p_tile=1024),
+                       tile_accumulate_plain(*runs, p_tile=1024))
     assert torch.equal(blur_stats_streaming(ch, taps, rb=4),
                        blur_stats_streaming_plain(ch, taps))
     assert tile_accumulate.launches == n_tile

@@ -801,8 +801,7 @@ def _traced_drain(engine="cuda_batched", executor=None, n_streams=3,
 
 
 ENGINE_STEPS = {"cuda_batched": ["bin_taps", "megakernel"],
-                "cuda": ["pack_tiles", "tile_accumulate", "fold_back",
-                         "blur_stats"],
+                "cuda": ["pack_tiles", "tile_accumulate", "blur_stats"],
                 "reference": []}
 
 
