@@ -20,7 +20,10 @@ the call), and every tensor it reads is marked as used by that stream
 (`record_stream`). Results are gathered onto the grid's first device in
 slot order, after the caller's stream has waited on each shard's end
 event. There are no collectives and no float reductions across shards, so
-each window's result is that of the local path.
+each window's result is that of the local path. Each shard's residence
+loop runs on the CUDA graphs of its own class (`core.graphs`, keyed by
+device), counted into the caller's graph tally; shards of one class on
+one card take its graphs in turn.
 
   * `estimate_batch_sharded(windows, omega0s, cfg, mesh)` — a (B, N)
     window batch, B divisible by the data-parallel extent (the serving
@@ -41,6 +44,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from .graphs import current_tally, graph_tally
 from .pipeline import (WindowResult, estimate_streams,
                        estimate_windows_parallel)
 from .types import CmaxConfig, EventWindow
@@ -132,11 +136,14 @@ def _run_sharded(local, windows: EventWindow, omegas: torch.Tensor, mesh):
             t.record_stream(s)
         done[i] = torch.cuda.Event()
 
+    counts = current_tally()
+
     def run(i: int):
         s = streams[i]
         if s is None:
             return local(ws[i], oms[i])
-        with torch.cuda.device(devs[i]), torch.cuda.stream(s):
+        with torch.cuda.device(devs[i]), torch.cuda.stream(s), \
+                graph_tally(counts):
             s.wait_event(ready[i])
             out = local(ws[i], oms[i])
             done[i].record(s)

@@ -21,6 +21,12 @@ batch it rides in. Under engine="cuda_batched" each such pass is one call
 of the engine-pass kernel for the whole batch; under engine="cuda" it is one
 launch each of the tile-accumulation and blur-statistics kernels, for one
 window (`estimate_window`, `estimate_sequence`) or the whole batch.
+
+On a card under either kernel engine the lockstep runs on CUDA graphs
+(`core.graphs`): one per stage entry (sort, entry pass, the carry's
+initial value, the stop test) and one per lockstep pass, captured from the
+bodies below after a class's first eager run, so a pass costs one replay
+and one read of the stop flag instead of hundreds of eager launches.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 from ..telemetry.spans import step
 from . import cgpr
 from .contrast import gaussian_taps, stats_to_objective, streaming_stats
+from .graphs import stage_graphs, tally
 from .iwe import build_iwe
 from .sorting import sort_events
 from .types import Camera, CmaxConfig, EventWindow, StageConfig
@@ -238,94 +245,198 @@ def _masked_select(mask: torch.Tensor, new, old):
     return type(new)(*vals) if hasattr(new, "_fields") else type(new)(vals)
 
 
-def _stop_flag(carry, cap: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a nest of tuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [a for sub in tree for a in _leaves(sub)]
+
+
+class _Lockstep(NamedTuple):
+    """One stage's masked lockstep over a (B,·) batch: what the entry pass
+    makes and each lockstep pass updates in place. Every tensor is a
+    buffer of its own, so a CUDA graph can replay over them."""
+
+    weights: torch.Tensor      # (B, N) f32 Alg. 3 retention of the stage
+    n_retained: torch.Tensor   # (B,) int32
+    v_entry: torch.Tensor      # (B,) variance at stage entry
+    cap: torch.Tensor          # (B,) int32 iterations a window may run
+    alpha_floor: torch.Tensor  # (B,) the step at which a window gives up
+    rows: torch.Tensor         # (B,) int64 rows of `hist`
+    hist: torch.Tensor         # (B, max_iters) per-iteration variance
+    carry: tuple               # ((omega, CgprState), v_prev, g, it, done,
+                               # alpha)
+    active: torch.Tensor       # (B,) bool: the windows the next pass moves
+    more: torch.Tensor         # () bool: whether any window is active
+
+
+def _stop_test(carry, cap: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The lockstep's stop test on a carry: which windows stay active,
-    and whether any does (the one device->host sync of a pass)."""
+    and whether any does (on the device, for the host loop to read)."""
     _, _, _, it, done, _ = carry
     active = (~done) & (it < cap)                          # (B,)
+    return active, active.any()
+
+
+def _stage_cap(B: int, max_iters: int, iter_cap: Optional[torch.Tensor],
+               dev: torch.device) -> torch.Tensor:
+    """(B,) int32 iteration bound of each window at one stage."""
+    cap = torch.full((B,), max_iters, dtype=torch.int32, device=dev)
+    if iter_cap is not None:
+        cap = torch.minimum(cap, torch.as_tensor(iter_cap, device=dev)
+                            .to(torch.int32))
+    return cap
+
+
+def _entry_pass(ev: EventWindow, omega: torch.Tensor, tables,
+                cap: torch.Tensor, stage: StageConfig, cfg: CmaxConfig,
+                stage_idx: int, engine_b: EnginePass) -> _Lockstep:
+    """Alg. 1 line 2 for a whole batch: the entry pass under the stage's
+    sort `tables` (Alg. 3), the carry's initial value and the stop test.
+    CG restarts at each stage, as in the per-window path."""
+    B = omega.shape[0]
+    dev = omega.device
+    v_entry, g_entry = engine_b(ev, tables.weights, omega)  # (B,), (B, 3)
+    max_iters = _max_iters(cfg, stage, stage_idx)
+    alpha0 = torch.full((B,), cfg.step_size * stage.step_scale,
+                        dtype=cfg.dtype, device=dev)
+    ost = cgpr.init_state(3, cfg.dtype, device=dev, batch=(B,))
+    # the carry owns its buffers: the caller's omega, the state's shared
+    # zeros and v_entry are never updated in place
+    carry = ((omega.clone(), cgpr.CgprState(*[a.clone() for a in ost])),
+             v_entry.clone(), g_entry,
+             torch.zeros((B,), dtype=torch.int32, device=dev),
+             torch.zeros((B,), dtype=torch.bool, device=dev), alpha0)
+    active, more = _stop_test(carry, cap)
+    return _Lockstep(
+        weights=tables.weights, n_retained=tables.n_retained,
+        v_entry=v_entry, cap=cap, alpha_floor=alpha0 / 64.0,
+        rows=torch.arange(B, device=dev),
+        hist=torch.full((B, max_iters), float("nan"), dtype=v_entry.dtype,
+                        device=dev),
+        carry=carry, active=active, more=more)
+
+
+def _lockstep_pass(st: _Lockstep, ev: EventWindow, stage: StageConfig,
+                   cfg: CmaxConfig, engine_b: EnginePass, update) -> None:
+    """One lockstep pass, written into `st` in place: CG-PR proposals for
+    the whole batch, ONE batched engine pass, the accept/reject select
+    (finished windows keep their carry verbatim: masked no-ops) and the
+    stop test."""
+    (om, ost), v_prev, g, it, done, alpha = st.carry
+    with step("propose"):
+        om_p, ost_p = update(om, g, ost, alpha)            # all B
+    with step("engine"):
+        v_p, g_p = engine_b(ev, st.weights, om_p)          # ONE batched pass
+    with step("select"):
+        rows, hist = st.rows, st.hist
+        it_c = it.clamp(0, max(hist.shape[1] - 1, 0)).long()
+        hist[rows, it_c] = torch.where(st.active, v_p, hist[rows, it_c])
+        improved = v_p > v_prev
+        om_n = _masked_select(improved, om_p, om)
+        ost_n = _masked_select(improved, ost_p, ost)
+        g_n = _masked_select(improved, g_p, g)
+        alpha_n = torch.where(improved, alpha, alpha * 0.5)
+        if cfg.adaptive:
+            g_norm = (v_p - v_prev) / torch.clamp(torch.abs(v_prev),
+                                                  min=1e-12)
+            done_n = (improved & (g_norm < stage.tau)) | \
+                ((~improved) & (alpha_n < st.alpha_floor))
+        else:
+            done_n = torch.zeros_like(improved)
+        v_prev_n = torch.where(improved, v_p, v_prev)
+        new = ((om_n, ost_n), v_prev_n, g_n, it + 1, done_n, alpha_n)
+        kept = _masked_select(st.active, new, st.carry)
+        for buf, val in zip(_leaves(st.carry), _leaves(kept)):
+            buf.copy_(val)
+        active, more = _stop_test(st.carry, st.cap)
+        st.active.copy_(active)
+        st.more.copy_(more)
+
+
+def _stop_sync(more: torch.Tensor) -> bool:
     with step("stop_sync"):
-        return active, bool(active.any())
+        return bool(more)                      # the one sync of a pass
 
 
-def _run_stage_batched(ev: EventWindow, omega: torch.Tensor,
-                       opt_state: cgpr.CgprState, cam: Camera,
+def _lockstep(entry: Callable[[], _Lockstep],
+              lockstep: Callable[[_Lockstep], None]
+              ) -> Tuple[_Lockstep, int]:
+    """The residence loop's host side: the entry pass, then lockstep
+    passes while any window is active, each ending in the one read of the
+    stop flag. Returns the final state and the passes run."""
+    with step("entry_pass"):
+        st = entry()
+        more = _stop_sync(st.more)
+    n = 1
+    while more:
+        with step("pass"):
+            lockstep(st)
+            more = _stop_sync(st.more)
+        n += 1
+    return st, n
+
+
+def _stage_result(st: _Lockstep, omega: torch.Tensor, own: bool
+                  ) -> Tuple[torch.Tensor, StageTrace]:
+    """A stage's estimate and trace from its final lockstep state; `own`
+    clones them out of buffers that a later replay overwrites."""
+    c = torch.clone if own else (lambda a: a)
+    (om, _), v_fin, _, iters, _, _ = st.carry
+    om, iters = c(om), c(iters)
+    return om, StageTrace(iters=iters, passes=iters + 1,
+                          n_retained=c(st.n_retained), v_final=c(v_fin),
+                          v_entry=c(st.v_entry), v_history=c(st.hist),
+                          omega_entry=omega, omega_exit=om)
+
+
+def _run_stage_batched(ev: EventWindow, omega: torch.Tensor, cam: Camera,
                        stage: StageConfig, cfg: CmaxConfig, stage_idx: int,
                        engine_b: EnginePass,
                        iter_cap: Optional[torch.Tensor] = None
-                       ) -> Tuple[torch.Tensor, cgpr.CgprState, StageTrace]:
+                       ) -> Tuple[torch.Tensor, StageTrace]:
     """`_run_stage` for a whole (B,·) batch in masked lockstep.
 
     One shared loop iterates until every window is done; each iteration is
     one batched engine pass, and finished windows keep their carry verbatim
     (masked no-ops). `iter_cap`, when given, is a (B,) int tensor. The
     entry pass and each pass end in the stop test; each opens the step
-    spans of `telemetry.spans.STEP_SPANS` under a service's tracer."""
+    spans of `telemetry.spans.STEP_SPANS` under a service's tracer.
+
+    On a card under a kernel engine the loop runs on its class's CUDA
+    graphs (`core.graphs`): the class's first run is eager and then
+    captures `_entry_pass` (after the sort) and `_lockstep_pass`; every
+    later run replays them, with the same bits."""
     B = omega.shape[0]
-    dev = omega.device
-    with step("sort"):
-        tables = sort_events(ev, omega, cam, stage)
-    weights = tables.weights                              # (B, N)
+    cap = _stage_cap(B, _max_iters(cfg, stage, stage_idx), iter_cap,
+                     omega.device)
+    update = cgpr.step if cfg.use_cgpr else cgpr.gradient_ascent_step
 
-    with step("entry_pass"):
-        v_entry, g_entry = engine_b(ev, weights, omega)   # (B,), (B, 3)
+    def entry(e: EventWindow, o: torch.Tensor, c: torch.Tensor, tables):
+        return _entry_pass(e, o, tables, c, stage, cfg, stage_idx, engine_b)
 
-        max_iters = _max_iters(cfg, stage, stage_idx)
-        cap = torch.full((B,), max_iters, dtype=torch.int32, device=dev)
-        if iter_cap is not None:
-            cap = torch.minimum(cap, torch.as_tensor(iter_cap, device=dev)
-                                .to(torch.int32))
+    def lockstep(st: _Lockstep, e: EventWindow) -> None:
+        _lockstep_pass(st, e, stage, cfg, engine_b, update)
 
-        update = cgpr.step if cfg.use_cgpr else cgpr.gradient_ascent_step
-        alpha0 = torch.full((B,), cfg.step_size * stage.step_scale,
-                            dtype=cfg.dtype, device=dev)
-        alpha_floor = alpha0 / 64.0
-        rows = torch.arange(B, device=dev)
-        no = torch.zeros((B,), dtype=torch.bool, device=dev)
+    def sort(e: EventWindow, o: torch.Tensor):
+        with step("sort"):
+            return sort_events(e, o, cam, stage)
 
-        # hist is updated in place; every other carry leaf is
-        # masked-selected
-        hist = torch.full((B, max_iters), float("nan"), dtype=v_entry.dtype,
-                          device=dev)
-        carry = ((omega, opt_state), v_entry, g_entry,
-                 torch.zeros((B,), dtype=torch.int32, device=dev), no,
-                 alpha0)
-        active, more = _stop_flag(carry, cap)
-    while more:
-        with step("pass"):
-            (om, ost), v_prev, g, it, done, alpha = carry
-            with step("propose"):
-                om_p, ost_p = update(om, g, ost, alpha)    # all B
-            with step("engine"):
-                v_p, g_p = engine_b(ev, weights, om_p)     # ONE batched pass
-            with step("select"):
-                it_c = it.clamp(0, max(max_iters - 1, 0)).long()
-                hist[rows, it_c] = torch.where(active, v_p, hist[rows, it_c])
-                improved = v_p > v_prev
-                om_n = _masked_select(improved, om_p, om)
-                ost_n = _masked_select(improved, ost_p, ost)
-                g_n = _masked_select(improved, g_p, g)
-                if cfg.adaptive:
-                    g_norm = (v_p - v_prev) / torch.clamp(torch.abs(v_prev),
-                                                          min=1e-12)
-                    done_ok = improved & (g_norm < stage.tau)
-                else:
-                    done_ok = no
-                alpha_n = torch.where(improved, alpha, alpha * 0.5)
-                done_stuck = ((~improved) & (alpha_n < alpha_floor)) \
-                    if cfg.adaptive else no
-                v_prev_n = torch.where(improved, v_p, v_prev)
-                # finished windows keep their carry verbatim (masked no-op)
-                new = ((om_n, ost_n), v_prev_n, g_n, it + 1,
-                       done_ok | done_stuck, alpha_n)
-                carry = _masked_select(active, new, carry)
-            active, more = _stop_flag(carry, cap)
-
-    (om, ost), v_fin, _, iters, _, _ = carry
-    trace = StageTrace(iters=iters, passes=iters + 1,
-                       n_retained=tables.n_retained, v_final=v_fin,
-                       v_entry=v_entry, v_history=hist,
-                       omega_entry=omega, omega_exit=om)
-    return om, ost, trace
+    graphs = stage_graphs(ev, omega, cfg, stage_idx)
+    if graphs is not None and graphs.captured:
+        with graphs.bound(ev, omega, cap):
+            st, _ = _lockstep(graphs.replay_entry, graphs.replay_pass)
+            return _stage_result(st, omega, own=True)
+    tables = sort(ev, omega)
+    st, n = _lockstep(lambda: entry(ev, omega, cap, tables),
+                      lambda s: lockstep(s, ev))
+    if omega.is_cuda:
+        tally("eager_passes", stage_idx, n)
+    if graphs is not None:
+        graphs.capture(ev, omega, cap,
+                       lambda e, o, c: entry(e, o, c, sort(e, o)), lockstep)
+    return _stage_result(st, omega, own=False)
 
 
 def _estimate_batch_lockstep(windows: EventWindow, omega0s: torch.Tensor,
@@ -335,17 +446,13 @@ def _estimate_batch_lockstep(windows: EventWindow, omega0s: torch.Tensor,
     """Whole-batch estimation through the batched engine pass: every engine
     pass of every stage is one batched call covering the full batch."""
     cam = cfg.camera
-    B = omega0s.shape[0]
     omega = omega0s.to(cfg.dtype)
     traces = []
     for si, stage in enumerate(cfg.stages):
         with step("stage", stage=si):
             engine_b = make_batched_engine_pass(cam, stage, cfg)
-            # CG restarts at each stage, as in the per-window path.
-            opt_state = cgpr.init_state(3, cfg.dtype, device=omega.device,
-                                        batch=(B,))
-            omega, opt_state, tr = _run_stage_batched(
-                windows, omega, opt_state, cam, stage, cfg, si, engine_b,
+            omega, tr = _run_stage_batched(
+                windows, omega, cam, stage, cfg, si, engine_b,
                 iter_cap=None if iter_caps is None else iter_caps[:, si])
         traces.append(tr)
     return WindowResult(omega=omega, stages=tuple(traces))
@@ -445,10 +552,10 @@ def estimate_batch_donated(windows: EventWindow, omega0s: torch.Tensor,
 
     PyTorch donates no buffer, so this aliases `estimate_batch`: the same
     computation and the same results, bit for bit, with the warm starts
-    left as they were. Donation gains a meaning once static per-class
-    input buffers exist (ROADMAP Queue 2 item 1); until then the async
-    service's executable is this function where the reference's donates
-    its (B, 3) warm-start buffer."""
+    left as they were. On a card the graphs' static per-class buffers
+    (`core.graphs`) take a copy of the batch, so nothing would be gained
+    by donating it; the async service's executable is this function where
+    the reference's donates its (B, 3) warm-start buffer."""
     return estimate_batch(windows, omega0s, cfg)
 
 

@@ -13,6 +13,7 @@ finished one into place.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -40,6 +41,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOAD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
+
+
+class _Aside(threading.local):
+    launches = None
+
+
+#: the calling thread's launches counted aside (`tally_launches`)
+_aside = _Aside()
 #: kernel name -> the compiler's report (`-Xptxas -v`: registers, shared
 #: memory, spills) from the build in this process
 BUILD_LOG: Dict[str, str] = {}
@@ -125,8 +134,25 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def count_launch(wrapper) -> None:
-    """Add one to a kernel wrapper's `launches`, under a lock: shards of
-    a device grid launch from several threads at once."""
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add `n` to a kernel wrapper's `launches`, under a lock: shards of
+    a device grid launch from several threads at once. Inside the calling
+    thread's `tally_launches` the count goes to its dict instead."""
+    aside = _aside.launches
+    if aside is not None:
+        aside[wrapper] = aside.get(wrapper, 0) + n
+        return
     with _COUNT_LOCK:
-        wrapper.launches += 1
+        wrapper.launches += n
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """Count the calling thread's launches inside the block aside, in the
+    dict it yields (wrapper -> launches), not in the wrappers' `launches`:
+    a CUDA graph being captured launches nothing until it is replayed."""
+    saved, _aside.launches = _aside.launches, {}
+    try:
+        yield _aside.launches
+    finally:
+        _aside.launches = saved

@@ -106,11 +106,14 @@ def _bind(lib):
 #: (device index, stream) -> int32 tickets, one a window, for the kernel's
 #: last-block sum. Zeroed once; every launch leaves them at zero, so the
 #: calls on one stream (which run in turn) share them, and calls on two
-#: streams never do.
+#: streams never do. A launch captured into a CUDA graph zeroes tickets of
+#: its own inside the graph instead: a graph may replay on any stream.
 _TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _tickets(dev: torch.device, stream: int, B: int) -> torch.Tensor:
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(B, dtype=torch.int32, device=dev)
     t = _TICKETS.get((dev.index, stream))
     if t is None or t.numel() < B:
         t = torch.zeros(max(B, 64), dtype=torch.int32, device=dev)

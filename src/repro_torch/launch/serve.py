@@ -66,6 +66,7 @@ Design notes:
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import dataclasses
 import itertools
@@ -136,6 +137,17 @@ def _block(result):
     for dev in {t.device for t in _tensors(result) if t.is_cuda}:
         torch.cuda.current_stream(dev).synchronize()
     return result
+
+
+def _tallied(fn, counts: collections.Counter):
+    """`fn` with what the residence loop does on a card counted into
+    `counts` (`core.graphs.graph_tally`), on whatever thread runs it."""
+    from ..core.graphs import graph_tally
+
+    def run(*args):
+        with graph_tally(counts):
+            return fn(*args)
+    return run
 
 
 @dataclasses.dataclass
@@ -351,6 +363,7 @@ class _InFlight:
     t_dispatch: float
     caps: Optional[np.ndarray] = None   # (B, S) budget caps, for telemetry
     batch_id: int = 0                   # the batch's id in its step spans
+    graphs: Optional[collections.Counter] = None   # core.graphs tally
 
 
 # ---------------------------------------------------------------------------
@@ -409,6 +422,21 @@ class _ServingMetrics:
             "repro_serving_slot_passes_total",
             "lockstep passes times the batch's slots, fill slots included",
             labels=("stage",))
+        # the residence loop's CUDA graphs (core.graphs), counted once a
+        # batch: over a window after set-up, replays / (replays + eager
+        # passes) reads 1.0 when every pass replays
+        self.graph_captures = c(
+            "repro_serving_graph_captures_total",
+            "residence-loop classes captured as CUDA graphs (an entry and a "
+            "pass graph each)", labels=("stage",))
+        self.graph_replays = c(
+            "repro_serving_graph_replays_total",
+            "residence-loop graph replays: entry passes (kind=entry) and "
+            "lockstep passes (kind=pass)", labels=("stage", "kind"))
+        self.graph_eager_passes = c(
+            "repro_serving_graph_eager_passes_total",
+            "entry and lockstep passes run eagerly on a card (a class's "
+            "first batch, or an engine without graphs)", labels=("stage",))
 
     def count_passes(self, iters: Sequence[Tuple[int, ...]],
                      batch_b: int) -> None:
@@ -421,6 +449,17 @@ class _ServingMetrics:
             self.window_passes.labels(stage=si).inc(
                 sum(1 + it for it in col))
             self.slot_passes.labels(stage=si).inc(lockstep * batch_b)
+
+    def count_graphs(self, counts: collections.Counter) -> None:
+        """Count one batch's `core.graphs` tally."""
+        for (kind, si), n in sorted(counts.items()):
+            if kind == "captures":
+                self.graph_captures.labels(stage=si).inc(n)
+            elif kind == "eager_passes":
+                self.graph_eager_passes.labels(stage=si).inc(n)
+            else:                       # entry_replays, pass_replays
+                self.graph_replays.labels(
+                    stage=si, kind=kind.split("_")[0]).inc(n)
 
 
 #: `stats` key -> _ServingMetrics attribute ("shed" is derived)
@@ -737,6 +776,9 @@ class AsyncBatchedEstimationService:
             # the caps are per-dispatch data; the workload closes them over
             # so every executor sees the uniform fn(data, state) signature
             fn = self.workload.attach_caps(fn, caps)
+        graphs = collections.Counter()
+        if self.workload.counts_passes:
+            fn = _tallied(fn, graphs)
         if self._tracer.enabled:
             attrs = _batch_attrs(batch, bucket_n, batch_b)
             fn = self._tracer.batch(fn, batch_id, attrs, _block)
@@ -749,7 +791,7 @@ class AsyncBatchedEstimationService:
             self._tracer.mark(r.stream_id, r.seq, "dispatch", t=t_dispatch,
                               batch_b=batch_b, compile=compiled)
         self._inflight.append(_InFlight(batch, handle, bucket_n, batch_b,
-                                        t_dispatch, caps, batch_id))
+                                        t_dispatch, caps, batch_id, graphs))
         self._m.batches.inc()
         self._m.event_slots.inc(bucket_n * batch_b)
         self._m.raw_events.inc(sum(self.workload.size_of(r.window)
@@ -790,6 +832,7 @@ class AsyncBatchedEstimationService:
         self._m.windows.inc(len(fb.requests))
         if self.workload.counts_passes:
             self._m.count_passes(harvested, fb.batch_b)
+            self._m.count_graphs(fb.graphs)
 
     def _record_decisions(self, r: WindowRequest, iters: Tuple[int, ...],
                           caps: Optional[np.ndarray], i: int,
@@ -997,6 +1040,9 @@ class BatchedEstimationService:
         pre_compiles = self._m.compiles.value
         fn = self._executable(bucket_n, batch_b)
         compiled = self._m.compiles.value != pre_compiles
+        graphs = collections.Counter()
+        if self.workload.counts_passes:
+            fn = _tallied(fn, graphs)
         t_dispatch = self.clock.now()
         if self._tracer.enabled:
             attrs = _batch_attrs(batch, bucket_n, batch_b)
@@ -1032,6 +1078,7 @@ class BatchedEstimationService:
         self._m.fill_slots.inc(n_fill)
         if self.workload.counts_passes:
             self._m.count_passes(harvested, batch_b)
+            self._m.count_graphs(graphs)
         return out
 
     def drain(self) -> List[WindowResponse]:

@@ -59,7 +59,8 @@ class Workload:
     supports_budgets: bool = False
     #: whether a slot's `iters` are per-stage iterations of a lockstep
     #: residence, each one engine pass after the stage's entry pass (the
-    #: service then counts the passes in its registry)
+    #: service then counts the passes, and the residence loop's CUDA
+    #: graph tally, in its registry)
     counts_passes: bool = False
     policy = None
 
@@ -248,9 +249,10 @@ class CmaxWorkload(Workload):
         """The batch function of one class: `estimate_batch_donated` for
         `donate` (the async service's), else `estimate_batch`, as the
         reference's. PyTorch donates no buffer, so the two give the same
-        results bit for bit. The port runs eagerly, so there is nothing
-        to compile; the service's cache and `compiles` counter track the
-        classes built."""
+        results bit for bit. Nothing is compiled here: on a card the
+        class's first batch captures the residence loop's CUDA graphs
+        (`core.graphs`); the service's cache and `compiles` counter track
+        the classes built."""
         from ..core.pipeline import (estimate_batch, estimate_batch_budgeted,
                                      estimate_batch_donated)
 

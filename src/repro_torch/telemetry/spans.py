@@ -57,11 +57,14 @@ SPAN_FIELDS = ("type", "stream_id", "seq", "qos", "bucket_n", "batch_b",
 #: `engine` the kernels' steps (`bin_taps`, `megakernel` on the batched
 #: engine; `pack_tiles`, `tile_accumulate`, `blur_stats` on the
 #: per-window one); `kernel_load` where a kernel library is first
-#: loaded (built with nvcc or not, its `nvcc` attribute says)
+#: loaded (built with nvcc or not, its `nvcc` attribute says); `capture`
+#: where a stage's CUDA graphs are captured (`core.graphs`), after the
+#: class's first run: on a card a stage's entry pass and passes are then
+#: replays, with `stop_sync` their only step
 STEP_SPANS = ("make_batch", "harvest", "batch", "stage", "sort",
               "entry_pass", "pass", "propose", "engine", "bin_taps",
               "megakernel", "pack_tiles", "tile_accumulate", "blur_stats",
-              "select", "stop_sync", "kernel_load")
+              "select", "stop_sync", "kernel_load", "capture")
 
 #: canonical keys of a serialized step span
 STEP_FIELDS = ("type", "id", "name", "parent", "batch", "t0_ns", "t1_ns",

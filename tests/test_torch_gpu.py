@@ -27,6 +27,8 @@ import torch
 
 import repro_torch.core as T
 from repro_torch.configs import ARCH_IDS
+from repro_torch.core import graphs as G
+from repro_torch.core import pipeline as P
 from repro_torch.core.pipeline import lockstep_passes, map_result
 from repro_torch.data import events
 from repro_torch.kernels import (_build, blur_stats_streaming,
@@ -706,19 +708,25 @@ def test_step_spans_on_the_card_keep_the_bits(cuda, engine, steps):
     """The async service on the card with step spans on opens the
     engine's kernel steps under every `engine` span, closes each batch
     after its stream has finished, and answers with the bits of the same
-    drain with spans off."""
+    drain with spans off. The drain starts on classes without graphs: a
+    class's first batch runs eagerly (every pass with its steps) and
+    captures, later batches replay (a pass holds only `stop_sync`), and
+    the graph counters add up to the lockstep passes."""
     from repro_torch.launch.serve import AsyncBatchedEstimationService
     from repro_torch.serving import CmaxWorkload
     from repro_torch.telemetry import Telemetry
 
     policy = events.pow2_policy(min_bucket=4096, max_bucket=8192)
     streams = _serve_streams(cuda)
+    cfg = _short_cfg(engine)
+    with G._CLASSES_LOCK:
+        for key in [k for k in G._CLASSES if k[1] == cfg]:
+            del G._CLASSES[key]
     answers, tels = [], []
     for spans in (True, False):
         tel = Telemetry(spans=spans)
         svc = AsyncBatchedEstimationService(
-            workload=CmaxWorkload(_short_cfg(engine), policy=policy,
-                                  device=cuda),
+            workload=CmaxWorkload(cfg, policy=policy, device=cuda),
             max_batch=2, max_in_flight=2, telemetry=tel)
         for sid, (wins, om0) in streams.items():
             for k, w in enumerate(wins):
@@ -737,14 +745,194 @@ def test_step_spans_on_the_card_keep_the_bits(cuda, engine, steps):
         kids.setdefault(sp.parent, []).append(sp.name)
     engines = [sp for sp in on if sp.name == "engine"]
     assert engines and all(kids[sp.id] == steps for sp in engines)
+    forms = {tuple(kids[sp.id]) for sp in on if sp.name == "pass"}
+    assert ("propose", "engine", "select", "stop_sync") in forms
+    assert forms <= {("propose", "engine", "select", "stop_sync"),
+                     ("stop_sync",)}
+    assert any(sp.name == "capture" for sp in on)
     snap = tels[0].registry.snapshot()
-    assert sum(snap["repro_serving_lockstep_passes_total"].values()) == \
-        sum(sp.name in ("entry_pass", "pass") for sp in on)
+    total = lambda snap, name: sum(snap[f"repro_serving_{name}"].values())
+    lockstep = total(snap, "lockstep_passes_total")
+    assert lockstep == sum(sp.name in ("entry_pass", "pass") for sp in on)
+    assert lockstep == total(snap, "graph_replays_total") \
+        + total(snap, "graph_eager_passes_total")
+    assert total(snap, "graph_captures_total") > 0
+    # the drain with spans off replays the classes captured above
+    off = tels[1].registry.snapshot()
+    assert total(off, "graph_replays_total") > 0
+    assert total(off, "lockstep_passes_total") == \
+        total(off, "graph_replays_total") \
+        + total(off, "graph_eager_passes_total")
     # a batch's span ends after its device work, so the worker's spans of
     # one batch never overlap the next batch's
     batches = sorted((sp for sp in on if sp.name == "batch"),
                      key=lambda sp: sp.t0_ns)
     assert all(a.t1_ns <= b.t0_ns for a, b in zip(batches, batches[1:]))
+
+
+# ---- the residence loop on CUDA graphs (core/graphs.py) ----
+
+
+@pytest.fixture(scope="module")
+def windows8(cuda):
+    spec = dataclasses.replace(events.POSTER, n_windows=8,
+                               events_per_window=8192, jerk_prob=0.0)
+    wins, _, om_imu = events.make_sequence(spec, device=cuda)
+    return wins, om_imu
+
+
+def _eager_lockstep(ev, omega0s, cfg, iter_caps=None):
+    """Every stage's lockstep run eagerly from the bodies the graphs
+    capture (`_entry_pass` after the sort, `_lockstep_pass`): the graphs'
+    oracle."""
+    omega = omega0s.to(cfg.dtype)
+    update = T.cgpr.step if cfg.use_cgpr else T.cgpr.gradient_ascent_step
+    stages = []
+    for si, stage in enumerate(cfg.stages):
+        engine_b = P.make_batched_engine_pass(cfg.camera, stage, cfg)
+        cap = P._stage_cap(omega.shape[0], P._max_iters(cfg, stage, si),
+                           None if iter_caps is None else iter_caps[:, si],
+                           omega.device)
+        tables = T.sort_events(ev, omega, cfg.camera, stage)
+        st = P._entry_pass(ev, omega, tables, cap, stage, cfg, si, engine_b)
+        while bool(st.more):
+            P._lockstep_pass(st, ev, stage, cfg, engine_b, update)
+        omega, tr = P._stage_result(st, omega, own=False)
+        stages.append(tr)
+    return T.WindowResult(omega=omega, stages=tuple(stages))
+
+
+def _leaves(res):
+    return [res.omega] + [a for st in res.stages for a in st]
+
+
+def _assert_bitwise(res_a, res_b):
+    for a, b in zip(_leaves(res_a), _leaves(res_b), strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+def _replayed(fn, n_stages):
+    """`fn()` run twice; the second run's result, after checking that it
+    replayed the graphs of every stage and ran no pass eagerly."""
+    fn()
+    with G.graph_tally() as counts:
+        res = fn()
+    assert not any(kind == "eager_passes" for kind, _ in counts)
+    assert {si for kind, si in counts if kind == "entry_replays"} == \
+        set(range(n_stages))
+    return res, counts
+
+
+def _launch_counter(engine):
+    return megakernel.megakernel_stats if engine == "cuda_batched" \
+        else tile_accumulate
+
+
+@pytest.mark.parametrize("engine,B", [("cuda_batched", 8),
+                                      ("cuda_batched", 1), ("cuda", 1)])
+def test_graphed_lockstep_is_bitwise_its_eager_body(windows8, engine, B):
+    """Over all three stages the replayed loop gives the bits of its
+    bodies run eagerly (estimate_batch and estimate_batch_budgeted with
+    caps below `max_iters`), each replay counts the kernels' launches, and
+    a replayed estimate_streams chain is its eager chain."""
+    wins, om = windows8
+    ev, om = wins.map(lambda a: a[:B]), om[:B]
+    cfg = _short_cfg(engine)
+    res, counts = _replayed(lambda: T.estimate_batch(ev, om, cfg), 3)
+    _assert_bitwise(res, _eager_lockstep(ev, om, cfg))
+    counter = _launch_counter(engine)
+    before = counter.launches
+    again = T.estimate_batch(ev, om, cfg)
+    assert counter.launches - before == lockstep_passes(again) == \
+        sum(counts.values())
+    _assert_bitwise(again, res)
+
+    caps = torch.tensor([[1, 4, 0], [3, 2, 5], [0, 0, 2], [5, 1, 3]] * 2,
+                        dtype=torch.int32, device=om.device)[:B]
+    res, _ = _replayed(
+        lambda: T.estimate_batch_budgeted(ev, om, caps, cfg), 3)
+    assert all(bool((st.iters <= c).all())
+               for st, c in zip(res.stages, caps.T))
+    _assert_bitwise(res, _eager_lockstep(ev, om, cfg, caps))
+
+    S = 2 if B == 8 else 1
+    chain = wins.map(lambda a: a.view(S, 8 // S, -1)[:, :4 // S])
+    (oms, res), _ = _replayed(
+        lambda: T.estimate_streams(chain, om[:S], cfg), 3)
+    omega = om[:S]
+    for k in range(chain.x.shape[1]):
+        step_k = _eager_lockstep(chain.map(lambda a: a[:, k]), omega, cfg)
+        _assert_bitwise(map_result(lambda a: a[:, k], res), step_k)
+        omega = step_k.omega
+
+
+def test_graphed_results_outlive_the_next_replay(windows8):
+    """A batch's result does not alias the graphs' buffers: it keeps its
+    bits after the next batch of its class has replayed into them."""
+    wins, om = windows8
+    cfg = _short_cfg("cuda_batched")
+    a = wins.map(lambda x: x[:4])
+    b = wins.map(lambda x: x[4:])
+    res_a, _ = _replayed(lambda: T.estimate_batch(a, om[:4], cfg), 3)
+    kept = map_result(torch.clone, res_a)
+    res_b = T.estimate_batch(b, om[4:], cfg)
+    torch.cuda.synchronize()
+    _assert_bitwise(res_a, kept)
+    assert not torch.equal(res_b.omega, res_a.omega)
+
+
+@pytest.mark.parametrize("engine", ["cuda_batched", "cuda"])
+def test_graphed_window_is_independent_of_its_batch(windows8, engine):
+    """A window's whole replayed result has the same bits in every slot of
+    a batch of 8 as alone in a batch of 1 (each class its own graphs)."""
+    wins, om = windows8
+    cfg = _short_cfg(engine)
+    full, _ = _replayed(lambda: T.estimate_batch(wins, om, cfg), 3)
+    for i in range(8):
+        one, _ = _replayed(lambda: T.estimate_batch(
+            wins.map(lambda a: a[i:i + 1]), om[i:i + 1], cfg), 3)
+        _assert_bitwise(map_result(lambda a: a[i:i + 1], full), one)
+
+
+def test_capture_on_the_dispatch_worker_beside_host_copies(windows8):
+    """A class's first batch runs eagerly and captures its graphs on the
+    async executor's worker while the calling thread keeps copying data
+    to the card and back; the captured graphs then replay that batch with
+    the eager oracle's bits."""
+    from repro_torch.launch.serve import AsyncDispatchExecutor
+    wins, om = windows8
+    cfg = _short_cfg("cuda_batched")
+    n = 6144 + 2 * len(G._CLASSES)           # a length no class has had
+    ev, om3 = wins.map(lambda a: a[:3, :n]), om[:3]
+    tallies = []
+
+    def fn(w, o):
+        with G.graph_tally() as counts:
+            out = T.estimate_batch(w, o, cfg)
+        tallies.append(counts)
+        return out
+
+    ex = AsyncDispatchExecutor()
+    host = torch.randn(1 << 20)
+    results = []
+    for _ in range(2):
+        h = ex.submit(fn, ev, om3, n, 3)
+        copies = 0
+        while not h.future.done():
+            back = host.to(om.device).mul_(2.0).cpu()
+            assert torch.equal(back, host * 2.0)
+            copies += 1
+        results.append(ex.wait(h))
+        assert copies > 0
+    ex.close()
+    assert [tallies[0][("captures", si)] for si in range(3)] == [1, 1, 1]
+    assert not any(k == "eager_passes" for k, _ in tallies[1])
+    oracle = _eager_lockstep(ev, om3, cfg)
+    for res in results:
+        _assert_bitwise(res, oracle)
 
 
 # ---- core/energy.py and core/distributed.py on the card ----

@@ -236,3 +236,94 @@ def test_fixed_schedule_and_full_resolution(ref):
     gains = P.measured_stage_gains(res)
     assert gains.shape == (S, 1)
     assert result_to_numpy(res).omega.shape == (S, 3)
+
+
+def _lockstep_before_graphs(ev, omega, cfg, iter_caps=None):
+    """The masked lockstep as it was written before the residence loop ran
+    on CUDA graphs (one loop rebinding its carry, per stage): the oracle of
+    the CPU path's bits."""
+    B = omega.shape[0]
+    omega = omega.to(cfg.dtype)
+    traces = []
+    for si, stage in enumerate(cfg.stages):
+        engine_b = P.make_batched_engine_pass(cfg.camera, stage, cfg)
+        ost = T.cgpr.init_state(3, cfg.dtype, device="cpu", batch=(B,))
+        tables = T.sort_events(ev, omega, cfg.camera, stage)
+        weights = tables.weights
+        v_entry, g_entry = engine_b(ev, weights, omega)
+        max_iters = stage.max_iters if cfg.adaptive \
+            else int(cfg.fixed_iters[si])
+        cap = torch.full((B,), max_iters, dtype=torch.int32)
+        if iter_caps is not None:
+            cap = torch.minimum(cap, iter_caps[:, si].to(torch.int32))
+        update = T.cgpr.step if cfg.use_cgpr else \
+            T.cgpr.gradient_ascent_step
+        alpha0 = torch.full((B,), cfg.step_size * stage.step_scale,
+                            dtype=cfg.dtype)
+        alpha_floor = alpha0 / 64.0
+        rows = torch.arange(B)
+        no = torch.zeros((B,), dtype=torch.bool)
+        hist = torch.full((B, max_iters), float("nan"), dtype=v_entry.dtype)
+        carry = ((omega, ost), v_entry, g_entry,
+                 torch.zeros((B,), dtype=torch.int32), no, alpha0)
+        active = (~carry[4]) & (carry[3] < cap)
+        while bool(active.any()):
+            (om, st), v_prev, g, it, done, alpha = carry
+            om_p, st_p = update(om, g, st, alpha)
+            v_p, g_p = engine_b(ev, weights, om_p)
+            it_c = it.clamp(0, max(max_iters - 1, 0)).long()
+            hist[rows, it_c] = torch.where(active, v_p, hist[rows, it_c])
+            improved = v_p > v_prev
+            sel = lambda new, old: P._masked_select(improved, new, old)
+            if cfg.adaptive:
+                g_norm = (v_p - v_prev) / torch.clamp(torch.abs(v_prev),
+                                                      min=1e-12)
+                done_ok = improved & (g_norm < stage.tau)
+            else:
+                done_ok = no
+            alpha_n = torch.where(improved, alpha, alpha * 0.5)
+            done_stuck = ((~improved) & (alpha_n < alpha_floor)) \
+                if cfg.adaptive else no
+            new = ((sel(om_p, om), sel(st_p, st)), sel(v_p, v_prev),
+                   sel(g_p, g), it + 1, done_ok | done_stuck, alpha_n)
+            carry = P._masked_select(active, new, carry)
+            active = (~carry[4]) & (carry[3] < cap)
+        (om, _), v_fin, _, iters, _, _ = carry
+        traces.append(T.StageTrace(
+            iters=iters, passes=iters + 1, n_retained=tables.n_retained,
+            v_final=v_fin, v_entry=v_entry, v_history=hist,
+            omega_entry=omega, omega_exit=om))
+        omega = om
+    return T.WindowResult(omega=omega, stages=tuple(traces))
+
+
+def _bitwise(res_a, res_b):
+    leaves = lambda r: [r.omega] + [a for st in r.stages for a in st]
+    for a, b in zip(leaves(res_a), leaves(res_b), strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("schedule", ["adaptive", "fixed", "ascent", "caps"])
+@pytest.mark.parametrize("engine", ENGINES)
+def test_cpu_lockstep_is_eager_and_keeps_its_bits(ref, engine, schedule):
+    """On the CPU the residence loop captures no CUDA graph and counts no
+    replay or eager pass, and every engine gives the bits of the lockstep
+    as it was before graphs: the adaptive and fixed schedules, plain
+    gradient ascent, and caps below `max_iters`."""
+    from repro_torch.core import graphs as G
+    cfg = _tcfg(engine)
+    if schedule == "fixed":
+        cfg = dataclasses.replace(cfg, adaptive=False, fixed_iters=(2, 0, 3))
+    elif schedule == "ascent":
+        cfg = dataclasses.replace(cfg, use_cgpr=False)
+    caps = torch.tensor(CAPS) if schedule == "caps" else None
+    first, om0 = _win(ref["first"]), torch.tensor(ref["om0"])
+    n_classes = len(G._CLASSES)
+    with G.graph_tally() as counts:
+        res = T.estimate_batch(first, om0, cfg) if caps is None \
+            else T.estimate_batch_budgeted(first, om0, caps, cfg)
+    assert counts == {} and len(G._CLASSES) == n_classes
+    _bitwise(res, _lockstep_before_graphs(first, om0, cfg, caps))

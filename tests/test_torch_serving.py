@@ -907,6 +907,50 @@ def test_pass_counters_equal_the_harvested_iters_and_pass_spans(sync):
 
 
 @pytest.mark.parametrize("sync", [False, True])
+def test_graph_counters_read_the_batch_tally(sync):
+    """The service registers the residence loop's CUDA-graph counters; on
+    the CPU they stay empty, and what a batch's graph tally holds (faked
+    here: the CPU captures and replays nothing) reaches them by stage and
+    kind, also through the threaded executor."""
+    from repro_torch.core import graphs
+    from repro_torch.launch.serve import AsyncDispatchExecutor
+    names = ("repro_serving_graph_captures_total",
+             "repro_serving_graph_replays_total",
+             "repro_serving_graph_eager_passes_total")
+    tel = _traced_drain(sync=sync)[0]
+    snap = tel.registry.snapshot()
+    assert all(snap[n] == {} for n in names)
+
+    class Tallying(CmaxWorkload):
+        def executable(self, bucket_n, batch_b, **kw):
+            fn = super().executable(bucket_n, batch_b, **kw)
+
+            def run(w, o):
+                for kind in graphs.TALLY_KINDS:
+                    graphs.tally(kind, 1, 2)
+                graphs.tally("pass_replays", 0, 5)
+                return fn(w, o)
+            return run
+
+    cam = small_camera()
+    wl = Tallying(fast_cfg(cam), policy=POLICY, device="cpu")
+    svc = BatchedEstimationService(workload=wl, max_batch=4) if sync \
+        else make_svc(cam, workload=wl, executor=AsyncDispatchExecutor())
+    for k in range(3):
+        svc.submit(f"s{k}", one_window(cam, seed=k))
+    assert [r.status for r in svc.drain()] == ["ok"] * 3
+    if not sync:
+        svc.executor.close()
+    snap = svc.telemetry.registry.snapshot()
+    n = svc.stats["batches"]
+    assert snap[names[0]] == {'stage="1"': 2 * n}
+    assert snap[names[1]] == {'stage="0",kind="pass"': 5 * n,
+                              'stage="1",kind="entry"': 2 * n,
+                              'stage="1",kind="pass"': 2 * n}
+    assert snap[names[2]] == {'stage="1"': 2 * n}
+
+
+@pytest.mark.parametrize("sync", [False, True])
 def test_spans_off_record_nothing_and_give_the_same_bits(sync):
     """With spans off no step span is recorded and no scope is left on the
     thread; the answers are bitwise those of a run with spans on."""

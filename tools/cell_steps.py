@@ -20,6 +20,13 @@ error:
     `repro_serving_window_passes_total` over its change in
     `repro_serving_slot_passes_total` (what `useful_slot_share` reads from
     the benchmark's wrapper);
+  * the residence loop's CUDA graphs over the window: the change in
+    `repro_serving_graph_captures_total`, `..._graph_replays_total` (entry
+    and pass) and `..._graph_eager_passes_total`, and `replay_share`,
+    replays / (replays + eager passes), which reads 1.0 when every pass
+    of the window replayed a graph;
+  * the median and the largest `batch`, `make_batch` and `harvest` ms a
+    batch;
   * the profiled slice's device idle time by the innermost step span that
     covers it ("no span" where none does), and the share of the slice's
     device time whose operations start inside a step span;
@@ -176,10 +183,12 @@ def measure(cell, seed: int, seconds: float, device=None) -> dict:
     for name, d in totals.items():
         log(f"[steps]   {name}: {1e6 * d['total_s'] / n_pass:.1f} / "
             f"{1e6 * d['own_s'] / n_pass:.1f} ({d['count']} spans)")
+    ms_per_batch = {}
     for name in ("batch", "make_batch", "harvest"):
         ms = sorted((sp.t1_ns - sp.t0_ns) / 1e6 for bid in window
                     for sp in by_batch[bid] if sp.name == name)
         if ms:
+            ms_per_batch[name] = {"median": ms[len(ms) // 2], "max": ms[-1]}
             log(f"[steps] {name} ms per batch: median {ms[len(ms) // 2]:.2f},"
                 f" max {ms[-1]:.2f}")
     early = [bid for bid, sps in by_batch.items()
@@ -208,6 +217,18 @@ def measure(cell, seed: int, seconds: float, device=None) -> dict:
     slots = delta("repro_serving_slot_passes_total")
     slot_share = delta("repro_serving_window_passes_total") / slots \
         if slots else None
+    graphs = {}
+    for name in ("captures", "replays", "eager_passes"):
+        key = f"repro_serving_graph_{name}_total"
+        for lbl in sorted(set(s0.get(key, {})) | set(s1.get(key, {}))):
+            d = s1.get(key, {}).get(lbl, 0) - s0.get(key, {}).get(lbl, 0)
+            graphs[f"{name}{{{lbl}}}"] = d
+    replays = delta("repro_serving_graph_replays_total")
+    eager = delta("repro_serving_graph_eager_passes_total")
+    replay_share = replays / (replays + eager) if replays + eager else None
+    log(f"[steps] CUDA graphs over the window: "
+        + (", ".join(f"{k} {v}" for k, v in graphs.items()) or "none")
+        + f"; replay_share {replay_share}")
 
     # ---- the slice: idle by span, device time inside spans ----
     idle = idle_by_span(steps, data.device, a, b)
@@ -246,6 +267,8 @@ def measure(cell, seed: int, seconds: float, device=None) -> dict:
     return {"workload": cell.name, "seed": seed,
             "host_us_per_pass": host_us,
             "slot_pass_share": slot_share,
+            "graphs": graphs, "replay_share": replay_share,
+            "ms_per_batch": ms_per_batch,
             "useful_slot_share": line["metrics"].get(
                 "useful_slot_share.replay", {}).get("value"),
             "device_time_in_spans": in_span,
