@@ -11,16 +11,17 @@ of `repro.core.pipeline`).
           adaptive:  stay iff g >= tau_s  (else promote / terminate)
           fixed:     stay iff iter < fixed_iters[s]
 
-The reference's `lax.while_loop` is a host loop here: every iteration reads
-one stop flag back from the device (one device->host sync per iteration).
-Batches run in masked lockstep (`_run_stage_batched`): one engine pass per
-iteration covers the whole batch, finished windows keep their carry
-verbatim, and the loop stops when no window is active — the carry-select
-semantics of the reference, so a window's result does not depend on the
-batch it rides in. Under engine="cuda_batched" each such pass is one call
-of the engine-pass kernel for the whole batch; under engine="cuda" it is one
-launch each of the tile-accumulation and blur-statistics kernels, for one
-window (`estimate_window`, `estimate_sequence`) or the whole batch.
+The reference's `lax.while_loop` is a host loop here, and there is one:
+every entry point runs it in masked lockstep (`_run_stage_batched`), the
+per-window ones (`estimate_window`, `estimate_sequence`) as batches of one
+squeezed back. One engine pass per iteration covers the whole batch,
+finished windows keep their carry verbatim, and every iteration reads one
+stop flag back from the device (one device->host sync per iteration); the
+loop stops when no window is active — the carry-select semantics of the
+reference, so a window's result does not depend on the batch it rides in.
+Under engine="cuda_batched" each such pass is one call of the engine-pass
+kernel for the whole batch; under engine="cuda" it is one launch each of
+the tile-accumulation and blur-statistics kernels.
 
 On a card under either kernel engine the lockstep runs on CUDA graphs
 (`core.graphs`): one per stage entry (sort, entry pass, the carry's
@@ -99,20 +100,19 @@ def _fir_cache(stage: StageConfig, dtype):
 
 def make_engine_pass(cam: Camera, stage: StageConfig,
                      dtype=torch.float32, engine: str = "reference", *,
-                     capacity: int = 4096) -> EnginePass:
+                     capacity: int = 4096, rb: int = 8) -> EnginePass:
     """One full engine pass at stage s: warp+vote+accumulate (IWE & dIWE),
     blur statistics, Eq. 12 objective + gradient. Returns
     fn(ev, weights, omega) -> (variance, grad(..., 3)).
 
     "reference" is the plain datapath and takes any leading batch axes;
     "cuda" takes one (N,) window or a (B, N) batch, `capacity` being the
-    per-tile tap budget its `spilled` counts against; "cuda_batched" runs
-    one window as a batch of one through the kernel."""
-    Hs, Ws = stage.grid(cam)
-    fir = _fir_cache(stage, dtype)
-
+    per-tile tap budget its `spilled` counts against; "cuda_batched" takes
+    a (B, N) batch, the prologue plus ONE kernel call of row-slab height
+    `rb` for the whole batch."""
     if engine == "cuda":
         from ..kernels.ops import fused_engine_pass
+        fir = _fir_cache(stage, dtype)
 
         def tile_engine(ev: EventWindow, weights: torch.Tensor,
                         omega: torch.Tensor):
@@ -125,18 +125,21 @@ def make_engine_pass(cam: Camera, stage: StageConfig,
         return tile_engine
     if engine == "cuda_batched":
         from ..kernels.ops import batched_engine_pass
+        fir = _fir_cache(stage, torch.float32)
 
         def kernel_engine(ev: EventWindow, weights: torch.Tensor,
                           omega: torch.Tensor):
             v, g, _spilled = batched_engine_pass(
-                ev.map(lambda a: a.unsqueeze(0)), omega.unsqueeze(0), cam,
-                stage.scale, stage.blur_taps, stage.blur_sigma,
-                weights=weights.unsqueeze(0), fir=fir(ev.device))
-            return v[0], g[0]
+                ev, omega, cam, stage.scale, stage.blur_taps,
+                stage.blur_sigma, weights=weights, rb=rb,
+                fir=fir(ev.device))
+            return v, g
 
         return kernel_engine
     if engine != "reference":
         raise ValueError(f"unknown engine {engine!r}")
+    Hs, Ws = stage.grid(cam)
+    fir = _fir_cache(stage, dtype)
 
     def reference_engine(ev: EventWindow, weights: torch.Tensor,
                          omega: torch.Tensor):
@@ -149,91 +152,17 @@ def make_engine_pass(cam: Camera, stage: StageConfig,
 
 def make_batched_engine_pass(cam: Camera, stage: StageConfig,
                              cfg: CmaxConfig) -> EnginePass:
-    """Whole-batch engine pass: fn(ev (B,N), weights (B,N), omega (B,3))
-    -> (variance (B,), grad (B,3)).
-
-    Under engine="cuda_batched" this is the prologue plus ONE kernel call
-    for the whole batch; "cuda" launches each of its two kernels once for
-    the whole batch; "reference" runs the plain datapath on the batch."""
-    if cfg.engine == "cuda_batched":
-        from ..kernels.ops import batched_engine_pass
-        fir = _fir_cache(stage, torch.float32)
-
-        def kernel_engine(ev: EventWindow, weights: torch.Tensor,
-                          omega: torch.Tensor):
-            v, g, _spilled = batched_engine_pass(
-                ev, omega, cam, stage.scale, stage.blur_taps,
-                stage.blur_sigma, weights=weights, rb=cfg.engine_rb,
-                fir=fir(ev.device))
-            return v, g
-
-        return kernel_engine
-    return make_engine_pass(cam, stage, cfg.dtype, engine=cfg.engine,
-                            capacity=cfg.engine_capacity)
+    """`make_engine_pass` under `cfg`'s engine settings: fn(ev (B,N),
+    weights (B,N), omega (B,3)) -> (variance (B,), grad (B,3))."""
+    return make_engine_pass(cam, stage, cfg.dtype, cfg.engine,
+                            capacity=cfg.engine_capacity, rb=cfg.engine_rb)
 
 
-def _max_iters(cfg: CmaxConfig, stage: StageConfig, stage_idx: int) -> int:
-    return stage.max_iters if cfg.adaptive else int(cfg.fixed_iters[stage_idx])
-
-
-def _run_stage(ev: EventWindow, omega: torch.Tensor,
-               opt_state: cgpr.CgprState, cam: Camera, stage: StageConfig,
-               cfg: CmaxConfig, stage_idx: int, engine: EnginePass,
-               iter_cap: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, cgpr.CgprState, StageTrace]:
-    """Residence of one window at one stage under Alg. 1 (or the fixed
-    schedule). `iter_cap`, when given, is an int tensor bounding residence
-    on top of the static `max_iters`.
-
-    Update(omega, s) uses accept/reject step control: a proposal that
-    decreases the variance is rejected (omega reverts) and the step halves;
-    a stage gives up and promotes when the step has collapsed to alpha0/64.
-    Every proposal, accepted or not, costs one engine pass."""
-    dev = omega.device
-    tables = sort_events(ev, omega, cam, stage)
-    weights = tables.weights
-
-    # Alg. 1 line 2: V_prev <- V_s(omega)  (entry pass, also primes grad)
-    v_entry, g_entry = engine(ev, weights, omega)
-
-    max_iters = _max_iters(cfg, stage, stage_idx)
-    cap = max_iters if iter_cap is None else min(max_iters, int(iter_cap))
-
-    update = cgpr.step if cfg.use_cgpr else cgpr.gradient_ascent_step
-    alpha0 = torch.tensor(cfg.step_size * stage.step_scale, dtype=cfg.dtype,
-                          device=dev)
-    alpha_floor = alpha0 / 64.0
-
-    om, ost, v_prev, g, alpha = omega, opt_state, v_entry, g_entry, alpha0
-    hist = torch.full((max_iters,), float("nan"), dtype=v_entry.dtype,
-                      device=dev)
-    it, done = 0, False
-    while not done and it < cap:
-        om_p, ost_p = update(om, g, ost, alpha)      # propose
-        v_p, g_p = engine(ev, weights, om_p)         # one engine pass
-        hist[it] = v_p
-        improved = v_p > v_prev
-        sel = lambda a, b: torch.where(improved, a, b)
-        om = sel(om_p, om)
-        ost = cgpr.CgprState(*[sel(a, b) for a, b in zip(ost_p, ost)])
-        g = sel(g_p, g)
-        alpha = torch.where(improved, alpha, alpha * 0.5)
-        if cfg.adaptive:
-            g_norm = (v_p - v_prev) / torch.clamp(torch.abs(v_prev),
-                                                  min=1e-12)
-            stop = (improved & (g_norm < stage.tau)) | \
-                ((~improved) & (alpha < alpha_floor))
-        v_prev = sel(v_p, v_prev)
-        it += 1
-        if cfg.adaptive:
-            done = bool(stop)                        # one sync/iteration
-
-    iters = torch.tensor(it, dtype=torch.int32, device=dev)
-    trace = StageTrace(iters=iters, passes=iters + 1,
-                       n_retained=tables.n_retained, v_final=v_prev,
-                       v_entry=v_entry, v_history=hist,
-                       omega_entry=omega, omega_exit=om)
-    return om, ost, trace
+def stage_max_iters(cfg: CmaxConfig, stage_idx: int) -> int:
+    """The iterations a window may run at stage `stage_idx`: the stage's
+    `max_iters` under the adaptive schedule, else its `fixed_iters`."""
+    return int(cfg.stages[stage_idx].max_iters if cfg.adaptive
+               else cfg.fixed_iters[stage_idx])
 
 
 def _masked_select(mask: torch.Tensor, new, old):
@@ -294,11 +223,12 @@ def _entry_pass(ev: EventWindow, omega: torch.Tensor, tables,
                 stage_idx: int, engine_b: EnginePass) -> _Lockstep:
     """Alg. 1 line 2 for a whole batch: the entry pass under the stage's
     sort `tables` (Alg. 3), the carry's initial value and the stop test.
-    CG restarts at each stage, as in the per-window path."""
+    CG restarts at each stage, as the hardware does: its history does not
+    transfer across resolutions, where the objective changes scale."""
     B = omega.shape[0]
     dev = omega.device
     v_entry, g_entry = engine_b(ev, tables.weights, omega)  # (B,), (B, 3)
-    max_iters = _max_iters(cfg, stage, stage_idx)
+    max_iters = stage_max_iters(cfg, stage_idx)
     alpha0 = torch.full((B,), cfg.step_size * stage.step_scale,
                         dtype=cfg.dtype, device=dev)
     ost = cgpr.init_state(3, cfg.dtype, device=dev, batch=(B,))
@@ -396,20 +326,25 @@ def _run_stage_batched(ev: EventWindow, omega: torch.Tensor, cam: Camera,
                        engine_b: EnginePass,
                        iter_cap: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, StageTrace]:
-    """`_run_stage` for a whole (B,·) batch in masked lockstep.
+    """The residence of a whole (B,·) batch at one stage under Alg. 1 (or
+    the fixed schedule), in masked lockstep.
 
-    One shared loop iterates until every window is done; each iteration is
-    one batched engine pass, and finished windows keep their carry verbatim
-    (masked no-ops). `iter_cap`, when given, is a (B,) int tensor. The
-    entry pass and each pass end in the stop test; each opens the step
-    spans of `telemetry.spans.STEP_SPANS` under a service's tracer.
+    Update(omega, s) uses accept/reject step control: a proposal that
+    decreases the variance is rejected (omega reverts) and the step halves;
+    a window gives up and promotes when the step has collapsed to
+    alpha0/64. One shared loop iterates until every window is done; each
+    iteration is one batched engine pass, which every proposal costs, and
+    finished windows keep their carry verbatim (masked no-ops). `iter_cap`,
+    when given, is a (B,) int tensor. The entry pass and each pass end in
+    the stop test; each opens the step spans of `telemetry.spans.STEP_SPANS`
+    under a service's tracer.
 
     On a card under a kernel engine the loop runs on its class's CUDA
     graphs (`core.graphs`): the class's first run is eager and then
     captures `_entry_pass` (after the sort) and `_lockstep_pass`; every
     later run replays them, with the same bits."""
     B = omega.shape[0]
-    cap = _stage_cap(B, _max_iters(cfg, stage, stage_idx), iter_cap,
+    cap = _stage_cap(B, stage_max_iters(cfg, stage_idx), iter_cap,
                      omega.device)
     update = cgpr.step if cfg.use_cgpr else cgpr.gradient_ascent_step
 
@@ -464,26 +399,12 @@ def _squeeze0(res: WindowResult) -> WindowResult:
 
 def _estimate_window(ev: EventWindow, omega0: torch.Tensor, cfg: CmaxConfig,
                      iter_caps: Optional[torch.Tensor]) -> WindowResult:
-    if cfg.engine == "cuda_batched":
-        # B=1 batch through the kernel path, squeezed back to scalars.
-        caps = None if iter_caps is None else iter_caps.unsqueeze(0)
-        return _squeeze0(_estimate_batch_lockstep(
-            ev.map(lambda a: a.unsqueeze(0)), omega0.unsqueeze(0), cfg,
-            iter_caps=caps))
-    cam = cfg.camera
-    omega = omega0.to(cfg.dtype)
-    traces = []
-    for si, stage in enumerate(cfg.stages):
-        engine = make_engine_pass(cam, stage, cfg.dtype, engine=cfg.engine,
-                                  capacity=cfg.engine_capacity)
-        # CG history does not transfer across resolutions (the objective
-        # surface changes scale) — restart CG at each stage, as HW does.
-        opt_state = cgpr.init_state(3, cfg.dtype, device=omega.device)
-        omega, opt_state, tr = _run_stage(
-            ev, omega, opt_state, cam, stage, cfg, si, engine,
-            iter_cap=None if iter_caps is None else iter_caps[si])
-        traces.append(tr)
-    return WindowResult(omega=omega, stages=tuple(traces))
+    """One window as a batch of one through the lockstep, squeezed back to
+    scalar traces."""
+    caps = None if iter_caps is None else iter_caps.unsqueeze(0)
+    return _squeeze0(_estimate_batch_lockstep(
+        ev.map(lambda a: a.unsqueeze(0)), omega0.unsqueeze(0), cfg,
+        iter_caps=caps))
 
 
 def estimate_window(ev: EventWindow, omega0: torch.Tensor,
@@ -515,16 +436,12 @@ def estimate_batch_budgeted(windows: EventWindow, omega0s: torch.Tensor,
 
 def estimate_sequence(windows: EventWindow, omega_init: torch.Tensor,
                       cfg: CmaxConfig) -> Tuple[torch.Tensor, WindowResult]:
-    """Sequential estimation over (K, N) windows with warm starts.
-    Returns (omegas (K,3), stacked WindowResult traces)."""
-    omega = omega_init
-    results = []
-    for k in range(windows.x.shape[0]):
-        res = estimate_window(windows.map(lambda a: a[k]), omega, cfg)
-        omega = res.omega
-        results.append(res)
-    results = stack_results(results)
-    return results.omega, results
+    """Sequential estimation over (K, N) windows with warm starts: the one
+    stream of `estimate_streams`. Returns (omegas (K,3), stacked
+    WindowResult traces)."""
+    omegas, res = estimate_streams(windows.map(lambda a: a.unsqueeze(0)),
+                                   omega_init.unsqueeze(0), cfg)
+    return omegas[0], _squeeze0(res)
 
 
 def estimate_windows_parallel(windows: EventWindow, omega0s: torch.Tensor,

@@ -321,11 +321,9 @@ class CmaxWorkload(Workload):
         stages = getattr(result, "stages", ())
         if not stages:
             return None
-        from ..core.pipeline import measured_stage_gains
-        cfg = self.cfg
-        max_iters = tuple(
-            int(st.max_iters) if cfg.adaptive else int(cfg.fixed_iters[si])
-            for si, st in enumerate(cfg.stages))
+        from ..core.pipeline import measured_stage_gains, stage_max_iters
+        max_iters = tuple(stage_max_iters(self.cfg, si)
+                          for si in range(len(self.cfg.stages)))
         return {"gains": measured_stage_gains(result),
                 "max_iters": max_iters}
 

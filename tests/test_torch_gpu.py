@@ -249,8 +249,9 @@ def test_cuda_engine_on_the_card(cuda, windows):
     """The per-window engine through estimate_batch and estimate_sequence:
     every engine pass launches each kernel once, the estimates track the
     ground truth, a window's result has the same bits alone as in its
-    slot, and in the reference's small setup it agrees with the port's
-    reference engine on the card."""
+    slot, the sequence replays the B=1 class's graphs and has the bits of
+    its stream of estimate_streams, and in the reference's small setup it
+    agrees with the port's reference engine on the card."""
     wins, om, om_true = windows
     cfg = dataclasses.replace(T.CmaxConfig(engine="cuda"), stages=tuple(
         dataclasses.replace(s, max_iters=6) for s in T.CmaxConfig().stages))
@@ -265,10 +266,23 @@ def test_cuda_engine_on_the_card(cuda, windows):
     assert torch.equal(one.omega[0], res.omega[2])
 
     t0 = tile_accumulate.launches
-    oms, seq = T.estimate_sequence(wins, om[0], cfg)
+    with G.graph_tally() as counts:
+        oms, seq = T.estimate_sequence(wins, om[0], cfg)
     assert oms.shape == (4, 3) and bool(torch.isfinite(oms).all())
     assert tile_accumulate.launches - t0 == \
         sum(int(st.passes.sum()) for st in seq.stages)
+    # `one` ran the B=1 class of every stage, so the sequence's windows
+    # replay its graphs: an entry replay each and a pass replay an iteration
+    assert not any(kind == "eager_passes" for kind, _ in counts)
+    for si, st in enumerate(seq.stages):
+        assert counts[("entry_replays", si)] == len(oms)
+        assert counts[("pass_replays", si)] == int(st.iters.sum())
+    assert sum(n for (kind, _), n in counts.items()
+               if kind == "pass_replays") > 0
+    streams = wins.map(lambda a: torch.stack([a, a.flip(0)]))
+    oms_s, res_s = T.estimate_streams(streams, om[[0, 3]], cfg)
+    assert torch.equal(oms, oms_s[0])
+    _assert_bitwise(seq, map_result(lambda a: a[0], res_s))
 
     cam = T.Camera(width=64, height=48, fx=53.0, fy=53.0, cx=32.0, cy=24.0)
     small = dataclasses.replace(cfg, camera=cam, stages=tuple(
@@ -790,7 +804,7 @@ def _eager_lockstep(ev, omega0s, cfg, iter_caps=None):
     stages = []
     for si, stage in enumerate(cfg.stages):
         engine_b = P.make_batched_engine_pass(cfg.camera, stage, cfg)
-        cap = P._stage_cap(omega.shape[0], P._max_iters(cfg, stage, si),
+        cap = P._stage_cap(omega.shape[0], P.stage_max_iters(cfg, si),
                            None if iter_caps is None else iter_caps[:, si],
                            omega.device)
         tables = T.sort_events(ev, omega, cfg.camera, stage)

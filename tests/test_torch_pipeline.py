@@ -7,7 +7,9 @@ their plain versions on the CPU) and are held to the JAX results on the
 same simulator windows: omega atol=5e-4, v_final rtol=1e-3
 (`tests/test_megakernel.py`'s end-to-end bars) and equal iteration counts.
 The `cuda` engine is also held to the JAX `pallas` engine at a capacity
-that spills. Slot independence is held to the port's own B=1 bits.
+that spills. Slot independence is held to the port's own B=1 bits, and the
+per-window entry points (`estimate_window`, `estimate_window_budgeted`,
+`estimate_sequence`) to the bits of their slot of the batched path.
 """
 import dataclasses
 
@@ -35,6 +37,7 @@ torch.set_num_threads(1)
 
 S, K, N = 3, 2, 1024
 CAPS = np.array([[1, 2, 1], [3, 3, 3], [0, 2, 5]], np.int32)
+SCHEDULES = ["adaptive", "fixed", "ascent", "caps"]
 
 
 def _jcfg():
@@ -51,6 +54,18 @@ def _jcfg():
 
 def _tcfg(engine):
     return dataclasses.replace(config_from_reference(_jcfg()), engine=engine)
+
+
+def _scheduled(engine, schedule):
+    """The config of `engine` under one of `SCHEDULES`: the adaptive one,
+    a fixed one, plain gradient ascent, or (the caller applying `CAPS`)
+    the adaptive one under caps."""
+    cfg = _tcfg(engine)
+    if schedule == "fixed":
+        return dataclasses.replace(cfg, adaptive=False, fixed_iters=(2, 0, 3))
+    if schedule == "ascent":
+        return dataclasses.replace(cfg, use_cgpr=False)
+    return cfg
 
 
 def _win(w):
@@ -139,28 +154,33 @@ def test_estimate_batch_budgeted_matches_reference(ref, engine):
     assert bool((iters <= torch.tensor(CAPS)).all())
 
 
+@pytest.mark.parametrize("schedule", SCHEDULES)
 @pytest.mark.parametrize("engine", ENGINES)
-def test_window_and_sequence_agree_with_batch(ref, engine):
-    """The per-window entry points equal the batched path's slot."""
-    cfg = _tcfg(engine)
+def test_window_and_sequence_agree_with_batch(ref, engine, schedule):
+    """The per-window entry points give the bits of their slot of the
+    batched path under every schedule: `estimate_window` (under caps,
+    `estimate_window_budgeted`) those of `estimate_batch`
+    (`estimate_batch_budgeted`), and `estimate_sequence` those of its
+    stream of `estimate_streams`."""
+    cfg = _scheduled(engine, schedule)
     streams = _win(ref["streams"])
-    om0 = torch.tensor(ref["om0"])
-    res_b = T.estimate_batch(streams.map(lambda a: a[:, 0]), om0, cfg)
-    res_w = T.estimate_window(streams.map(lambda a: a[1, 0]), om0[1], cfg)
-    np.testing.assert_allclose(res_w.omega.numpy(), res_b.omega[1].numpy(),
-                               atol=1e-5)
-    for tw, tb in zip(res_w.stages, res_b.stages):
-        assert int(tw.iters) == int(tb.iters[1])
-    oms, res_s = T.estimate_sequence(streams.map(lambda a: a[2]), om0[2], cfg)
-    oms_streams, _ = T.estimate_streams(streams, om0, cfg)
-    np.testing.assert_allclose(oms.numpy(), oms_streams[2].numpy(),
-                               atol=1e-5)
-    caps = torch.tensor([2, 0, 1], dtype=torch.int32)
-    res_c = T.estimate_window_budgeted(streams.map(lambda a: a[0, 0]),
-                                       om0[0], caps, cfg)
-    assert all(int(st.iters) <= int(c)
-               for st, c in zip(res_c.stages, caps))
-    assert int(res_c.stages[1].iters) == 0
+    first, om0 = streams.map(lambda a: a[:, 0]), torch.tensor(ref["om0"])
+    caps = torch.tensor(CAPS)
+    if schedule == "caps":
+        res_b = T.estimate_batch_budgeted(first, om0, caps, cfg)
+    else:
+        res_b = T.estimate_batch(first, om0, cfg)
+    for i in range(S):
+        ev = first.map(lambda a: a[i])
+        res_w = T.estimate_window_budgeted(ev, om0[i], caps[i], cfg) \
+            if schedule == "caps" else T.estimate_window(ev, om0[i], cfg)
+        _bitwise(res_w, P.map_result(lambda a: a[i], res_b))
+    oms_streams, res_streams = T.estimate_streams(streams, om0, cfg)
+    for s in range(S):
+        oms, res_s = T.estimate_sequence(streams.map(lambda a: a[s]), om0[s],
+                                         cfg)
+        assert torch.equal(oms, oms_streams[s])
+        _bitwise(res_s, P.map_result(lambda a: a[s], res_streams))
 
 
 @pytest.mark.parametrize("engine", ENGINES)
@@ -306,7 +326,7 @@ def _bitwise(res_a, res_b):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("schedule", ["adaptive", "fixed", "ascent", "caps"])
+@pytest.mark.parametrize("schedule", SCHEDULES)
 @pytest.mark.parametrize("engine", ENGINES)
 def test_cpu_lockstep_is_eager_and_keeps_its_bits(ref, engine, schedule):
     """On the CPU the residence loop captures no CUDA graph and counts no
@@ -314,11 +334,7 @@ def test_cpu_lockstep_is_eager_and_keeps_its_bits(ref, engine, schedule):
     as it was before graphs: the adaptive and fixed schedules, plain
     gradient ascent, and caps below `max_iters`."""
     from repro_torch.core import graphs as G
-    cfg = _tcfg(engine)
-    if schedule == "fixed":
-        cfg = dataclasses.replace(cfg, adaptive=False, fixed_iters=(2, 0, 3))
-    elif schedule == "ascent":
-        cfg = dataclasses.replace(cfg, use_cgpr=False)
+    cfg = _scheduled(engine, schedule)
     caps = torch.tensor(CAPS) if schedule == "caps" else None
     first, om0 = _win(ref["first"]), torch.tensor(ref["om0"])
     n_classes = len(G._CLASSES)
